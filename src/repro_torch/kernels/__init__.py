@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel.
+
+  keyswitch         — the LPU key-switch MAC, native 64-bit wrapping MAC.
+  fourstep_fft      — the four-step negacyclic FFT, f64, two passes.
+  external_product  — the BRU transform-domain MAC with batch BSK reuse.
+  fused_pbs         — the kernels wired into the batched PBS hot path with
+                      resident key operands (`kernel_backend="fused"`).
+
+Sources live in `csrc/` and build with `nvcc` at first use (`_build`).
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version only for CPU tensors; `launch_counts()` reads how often
+each kernel was launched.
+"""
+from repro_torch.kernels._build import launch_counts, reset_launch_counts  # noqa: F401

@@ -1,0 +1,56 @@
+"""BRU transform-domain MAC against one BSK slice shared by the batch.
+
+    out[b, k, f] = sum_j dig[b, j, f] * bsk[j, k, f]        (complex f64)
+
+Layouts are stacked re/im planes: dig (B, 2, J, F), bsk (2, J, K, F),
+out (B, 2, K, F), J = (k+1) * pbs_level.
+
+Replaces the Pallas TPU kernel
+`repro/kernels/external_product.py::external_product_mac` with the CUDA
+kernel in `csrc/external_product.cu`: one thread per f holds that f's
+J x K complex BSK values in registers and loops over the batch, so each
+BSK element is read once for the whole batch (the paper's key reuse).
+
+Bound on the card: bytes (13.6 MB per call at gpt2, B = 12, against
+6.3 MFLOP).  `external_product_mac` launches the kernel for CUDA tensors
+and runs `external_product_mac_plain` (a complex einsum) only for CPU
+tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def external_product_mac_plain(dig: torch.Tensor, bsk: torch.Tensor) -> torch.Tensor:
+    """dig (B,2,J,F), bsk (2,J,K,F) -> (B,2,K,F), f64 complex math."""
+    d = torch.complex(dig[:, 0], dig[:, 1])
+    w = torch.complex(bsk[0], bsk[1])
+    out = torch.einsum("bjf,jkf->bkf", d, w)
+    return torch.stack([out.real, out.imag], dim=1)
+
+
+def external_product_mac(dig: torch.Tensor, bsk: torch.Tensor) -> torch.Tensor:
+    """dig (B,2,J,F), bsk (2,J,K,F) -> (B,2,K,F) float64 planes."""
+    if dig.device.type == "cpu":
+        return external_product_mac_plain(dig, bsk)
+    name = "external_product_mac"
+    _build.require(name, dig.device.type == "cuda" and bsk.device == dig.device,
+                   f"needs CUDA tensors on one device, got {dig.device} and "
+                   f"{bsk.device}")
+    _build.require(name, dig.dtype == torch.float64 and bsk.dtype == torch.float64,
+                   f"needs float64 planes, got {dig.dtype} and {bsk.dtype}")
+    _build.require(name, dig.dim() == 4 and bsk.dim() == 4 and dig.shape[1] == 2
+                   and bsk.shape[0] == 2 and dig.shape[2] == bsk.shape[1]
+                   and dig.shape[3] == bsk.shape[3],
+                   f"shapes {tuple(dig.shape)} x {tuple(bsk.shape)}")
+    _build.require(name, dig.is_contiguous() and bsk.is_contiguous(),
+                   "needs contiguous tensors")
+    B, _, J, F = dig.shape
+    K = bsk.shape[2]
+    out = torch.empty((B, 2, K, F), dtype=torch.float64, device=dig.device)
+    fn = _build.function("external_product", "external_product_mac_launch", 3, 4)
+    _build.launch(name, fn, dig.data_ptr(), bsk.data_ptr(), out.data_ptr(),
+                  B, J, K, F, device=dig.device)
+    return out

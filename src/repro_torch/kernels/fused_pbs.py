@@ -1,0 +1,149 @@
+"""The fused PBS path: the hand-written kernels wired into one hot path.
+
+This is what `TaurusEngine(kernel_backend="fused")` runs: the batched
+KS-first PBS (paper Fig. 3, steps A-D) with the paper's key reuse made
+explicit as RESIDENT operands.
+
+    keyswitch     `kernels.keyswitch` — 64-bit MAC over the gadget digits
+                  of the whole batch, bit-identical to `core.lwe.keyswitch`.
+    blind rotate  per step: decompose the CMux difference, forward FFT
+                  kernel, one MAC kernel against the resident BSK slice,
+                  inverse FFT kernel, back onto the torus.
+    extract       `core.glwe.sample_extract`.
+
+`FusedPbsPack` is the residency contract: the Fourier BSK is laid out in
+the MAC kernel's re/im plane layout ONCE per key, and every later round
+reads the same device tensors.  The KSK operand is the int64 key itself.
+The pack is f64 only (an f32 transform voids decryption on the 64-bit
+torus), and the TPU's tiling knobs (`block_f`, `block_s`, `interpret`)
+have no counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import batch as batch_mod, decompose as dec, glwe, lwe, torus
+from repro_torch.core.params import TFHEParams
+from repro_torch.kernels import external_product, fourstep_fft, keyswitch
+
+
+def bsk_to_planes(bsk_f: torch.Tensor) -> torch.Tensor:
+    """Fourier BSK (n, k+1, level, k+1, M) complex -> kernel plane layout
+    (n, 2, J, K, M) f64 with J = (k+1)*level rows, j = u*level + l, the
+    order `external_product_planes` decomposes into."""
+    n, kp1, level, _, M = bsk_f.shape
+    flat = bsk_f.reshape(n, kp1 * level, kp1, M)
+    return torch.stack([flat.real, flat.imag], dim=1).contiguous()
+
+
+def keyswitch_fused(big_cts: torch.Tensor, ksk: torch.Tensor,
+                    params: TFHEParams) -> torch.Tensor:
+    """(B, big_n+1) -> (B, n+1) through the MAC kernel; `ksk` is the
+    (S, n+1) int64 key with S = big_n * ks_level.  Bit-identical to
+    `lwe.keyswitch`."""
+    digits = dec.decompose(big_cts[:, :-1], params.ks_base_log, params.ks_level)
+    digits = digits.reshape(big_cts.shape[0], -1).to(torch.int32)
+    out = -keyswitch.keyswitch_mac(digits, ksk)
+    out[:, -1] += big_cts[:, -1]
+    return out
+
+
+def external_product_planes(bsk_i: torch.Tensor, glwe_cts: torch.Tensor,
+                            params: TFHEParams) -> torch.Tensor:
+    """One resident BSK slice (2, J, K, M) applied to a GLWE batch
+    (B, K, N): decompose, forward FFT kernel, MAC kernel, inverse FFT
+    kernel, back onto the torus."""
+    B, K, N = glwe_cts.shape
+    M = N // 2
+    J = K * params.pbs_level
+    digs = dec.decompose(glwe_cts, params.pbs_base_log, params.pbs_level)
+    digs = digs.movedim(-1, -2).reshape(B * J, N)          # j = u*level + l
+    spec = fourstep_fft.fft_forward(digs.to(torch.float64))
+    dig_planes = spec.reshape(B, J, 2, M).transpose(1, 2).contiguous()
+    out = external_product.external_product_mac(dig_planes, bsk_i)  # (B, 2, K, M)
+    coeffs = fourstep_fft.fft_inverse(out.transpose(1, 2).reshape(B * K, 2, M))
+    return torus.float_to_torus(coeffs).reshape(B, K, N)
+
+
+def blind_rotate_fused(lut_glwes: torch.Tensor, ms_cts: torch.Tensor,
+                       bsk_planes: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """Batched blind rotation over the RESIDENT plane-layout BSK.
+
+    lut_glwes (B, k+1, N); ms_cts (B, n+1) mod-switched to [0, 2N);
+    bsk_planes (n, 2, J, K, M) — walked once, shared by the whole batch.
+    """
+    N = params.N
+    a, b = ms_cts[:, :-1], ms_cts[:, -1]
+    acc = batch_mod.rotate_batch(lut_glwes, (2 * N - b) % (2 * N), N)
+    for a_i, bsk_i in zip(a.T, bsk_planes):
+        diff = batch_mod.rotate_batch(acc, a_i, N) - acc
+        acc = acc + external_product_planes(bsk_i, diff, params)
+    return acc
+
+
+def pbs_small_fused(small_cts: torch.Tensor, lut_polys: torch.Tensor,
+                    bsk_planes: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """PBS minus the keyswitch: (B, n+1) small-key cts + (B, N) LUT polys
+    -> (B, k*N+1)."""
+    ms = lwe.mod_switch(small_cts, params.log2_N + 1)
+    acc = blind_rotate_fused(glwe.trivial(lut_polys, params.k), ms,
+                             bsk_planes, params)
+    return glwe.sample_extract(acc)
+
+
+def pbs_batch_fused(big_cts: torch.Tensor, lut_polys: torch.Tensor,
+                    bsk_planes: torch.Tensor, ksk: torch.Tensor,
+                    params: TFHEParams) -> torch.Tensor:
+    """(B, k*N+1) + (B, N) LUT polys -> (B, k*N+1), all four PBS stages
+    on the kernels with resident key operands."""
+    return pbs_small_fused(keyswitch_fused(big_cts, ksk, params), lut_polys,
+                           bsk_planes, params)
+
+
+@dataclasses.dataclass
+class FusedPbsPack:
+    """Resident kernel operands for one evaluation-key pair, built once
+    per engine and read by every later round."""
+    params: TFHEParams
+    bsk_planes: torch.Tensor         # (n, 2, J, K, M) f64 planes
+    ksk: torch.Tensor                # (S, T) int64, S = big_n * ks_level
+
+    @classmethod
+    def build(cls, bsk_f: torch.Tensor, ksk: torch.Tensor,
+              params: TFHEParams) -> "FusedPbsPack":
+        n_from, level, t = ksk.shape
+        return cls(params, bsk_to_planes(bsk_f), ksk.reshape(n_from * level, t))
+
+    # -- the engine entry points -------------------------------------------
+    def pbs_batch(self, big_cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
+        return pbs_batch_fused(big_cts, lut_polys, self.bsk_planes, self.ksk,
+                               self.params)
+
+    def keyswitch(self, big_cts: torch.Tensor) -> torch.Tensor:
+        return keyswitch_fused(big_cts, self.ksk, self.params)
+
+    def blind_rotate(self, lut_glwes: torch.Tensor, ms_cts: torch.Tensor) -> torch.Tensor:
+        return blind_rotate_fused(lut_glwes, ms_cts, self.bsk_planes, self.params)
+
+    def pbs_from_small(self, small_cts: torch.Tensor,
+                       lut_polys: torch.Tensor) -> torch.Tensor:
+        """PBS resumed after `keyswitch`: the KS-level-dedup half-round."""
+        return pbs_small_fused(small_cts, lut_polys, self.bsk_planes, self.params)
+
+    # -- bandwidth accounting -------------------------------------------------
+    @property
+    def resident_key_bytes(self) -> tuple[int, int]:
+        """(bsk_bytes, ksk_bytes) of the resident operands — what one
+        fused round streams from device memory once, regardless of B."""
+        return (self.bsk_planes.numel() * self.bsk_planes.element_size(),
+                self.ksk.numel() * self.ksk.element_size())
+
+    def bytes_streamed_per_round(self, batch: int) -> int:
+        """Key-reuse traffic model of ONE fused round: the resident keys
+        once, plus per-ciphertext input/LUT/output rows."""
+        p = self.params
+        bsk, ksk = self.resident_key_bytes
+        per_ct = (2 * (p.big_n + 1) + p.N) * 8   # ct in + ct out + LUT poly
+        return bsk + ksk + batch * per_ct

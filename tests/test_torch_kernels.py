@@ -1,0 +1,179 @@
+"""The port's kernel modules (`repro_torch.kernels`) against the Pallas
+kernels, which run in interpret mode as the JAX package's own tests run
+them.  On the CPU each wrapper takes its plain PyTorch version, so these
+tests hold the plain versions (the CUDA kernels' oracles on the card) to
+the TPU kernels: the keyswitch MAC exactly, the f64 FFT to 1e-12 of the
+spectrum scale, the MAC to 1e-9.  `tests/test_torch_cuda.py` holds the
+CUDA kernels to the same plain versions on the card.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import external_product as jep, fourstep_fft as jff  # noqa: E402
+from repro.kernels import fused_pbs as jfused, ops, ref  # noqa: E402
+from repro_torch.interop import context_from_numpy, tensor_to_u64, u64_to_tensor  # noqa: E402
+from repro_torch.kernels import external_product, fourstep_fft, fused_pbs, keyswitch  # noqa: E402
+from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def no_launches_on_cpu():
+    """Every test here runs on the CPU: no kernel may count a launch."""
+    reset_launch_counts()
+    yield
+    assert set(launch_counts().values()) == {0}
+
+
+@pytest.fixture(scope="module")
+def tctx_2bit(ctx_2bit):
+    arrays = {k: np.asarray(getattr(ctx_2bit, k))
+              for k in ("lwe_sk", "glwe_sk", "big_sk", "ksk", "bsk_f")}
+    return context_from_numpy(dataclasses.asdict(ctx_2bit.params), arrays, "cpu")
+
+
+def jax_keyswitch(digits, ksk_u64, block_s):
+    return np.asarray(ops.lpu_keyswitch_mac(jnp.asarray(digits), jnp.asarray(ksk_u64),
+                                            block_s=block_s))
+
+
+def port_keyswitch(digits, ksk_u64):
+    got = keyswitch.keyswitch_mac(torch.as_tensor(digits),
+                                  u64_to_tensor(ksk_u64, "cpu"))
+    return tensor_to_u64(got)
+
+
+# --- keyswitch MAC ------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,T,block_s", [(1, 128, 65, 128), (4, 1024, 513, 1024),
+                                           (3, 2048, 129, 512)])
+def test_keyswitch_mac_exact(B, S, T, block_s):
+    rng = np.random.default_rng(S + T)
+    digits = rng.integers(-(1 << 15), 1 << 15, (B, S)).astype(np.int32)
+    ksk = rng.integers(0, 2 ** 64, (S, T), dtype=np.uint64)
+    got = port_keyswitch(digits, ksk)
+    assert np.array_equal(got, jax_keyswitch(digits, ksk, block_s))
+    assert np.array_equal(got, np.asarray(ref.keyswitch_mac_ref(jnp.asarray(digits),
+                                                                jnp.asarray(ksk))))
+
+
+def test_keyswitch_mac_extreme_digits():
+    digits = np.array([[-(1 << 31), (1 << 31) - 1, -1, 1, 0, 7, -7, 12345]], dtype=np.int32)
+    ksk = np.random.default_rng(0).integers(0, 2 ** 64, (8, 33), dtype=np.uint64)
+    assert np.array_equal(port_keyswitch(digits, ksk), jax_keyswitch(digits, ksk, 8))
+
+
+@pytest.mark.parametrize("S,block_s", [(100, 64), (33, 32), (2560, 1024)])
+def test_keyswitch_mac_unaligned_s(S, block_s):
+    rng = np.random.default_rng(S)
+    digits = rng.integers(-(1 << 12), 1 << 12, (2, S)).astype(np.int32)
+    ksk = rng.integers(0, 2 ** 64, (S, 65), dtype=np.uint64)
+    assert np.array_equal(port_keyswitch(digits, ksk), jax_keyswitch(digits, ksk, block_s))
+
+
+# --- four-step FFT ------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [4, 128, 1024, 16384, 32768])
+def test_factor_m_matches(M):
+    assert fourstep_fft.factor_m(M) == jff.factor_m(M)
+
+
+@pytest.mark.parametrize("N", [256, 2048, 8192])
+@pytest.mark.parametrize("B", [1, 3])
+def test_fft_forward_inverse_f64(N, B):
+    rng = np.random.default_rng(N + B)
+    x = rng.integers(-2 ** 20, 2 ** 20, (B, N)).astype(np.float64)
+    want = np.asarray(jff.fft_forward(jnp.asarray(x), dtype=jnp.float64))
+    got = fourstep_fft.fft_forward(torch.as_tensor(x)).numpy()
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * scale)
+    back = fourstep_fft.fft_inverse(torch.as_tensor(got)).numpy()
+    np.testing.assert_allclose(back, x, rtol=0, atol=1e-12 * scale)
+    jback = np.asarray(jff.fft_inverse(jnp.asarray(want), dtype=jnp.float64))
+    np.testing.assert_allclose(back, jback, rtol=0, atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("N", [512, 2048])
+def test_fft_negacyclic_convolution_property(N):
+    rng = np.random.default_rng(N + 7)
+    a, b = rng.integers(-64, 64, N), rng.integers(-64, 64, N)
+    sa = fourstep_fft.fft_forward(torch.as_tensor(a[None], dtype=torch.float64))
+    sb = fourstep_fft.fft_forward(torch.as_tensor(b[None], dtype=torch.float64))
+    prod = torch.stack([sa[:, 0] * sb[:, 0] - sa[:, 1] * sb[:, 1],
+                        sa[:, 0] * sb[:, 1] + sa[:, 1] * sb[:, 0]], dim=1)
+    got = fourstep_fft.fft_inverse(prod).numpy()[0]
+    want = np.zeros(N, dtype=np.int64)
+    for i in range(N):
+        k = (i + np.arange(N)) % (2 * N)
+        np.add.at(want, k % N, np.where(k < N, a[i] * b, -(a[i] * b)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+# --- external-product MAC -----------------------------------------------------
+
+@pytest.mark.parametrize("J,K,F", [(2, 2, 256), (4, 2, 512), (6, 3, 256)])
+@pytest.mark.parametrize("B", [1, 12])
+def test_external_product_mac_f64(B, J, K, F):
+    rng = np.random.default_rng(J * K + F + B)
+    dig = rng.normal(size=(B, 2, J, F)) * 100
+    bsk = rng.normal(size=(2, J, K, F))
+    want = np.asarray(jep.external_product_mac(jnp.asarray(dig), jnp.asarray(bsk),
+                                               block_f=min(256, F), dtype=jnp.float64))
+    got = external_product.external_product_mac(torch.as_tensor(dig), torch.as_tensor(bsk))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9)
+
+
+# --- wrappers raise on devices they have no kernel for -------------------------
+
+def test_wrappers_refuse_non_cuda_non_cpu_tensors():
+    meta = lambda *s, dt=torch.float64: torch.empty(*s, dtype=dt, device="meta")
+    with pytest.raises(ValueError, match="keyswitch_mac"):
+        keyswitch.keyswitch_mac(meta(2, 8, dt=torch.int32), meta(8, 5, dt=torch.int64))
+    with pytest.raises(ValueError, match="fft_forward"):
+        fourstep_fft.fft_forward(meta(2, 64))
+    with pytest.raises(ValueError, match="fft_inverse"):
+        fourstep_fft.fft_inverse(meta(2, 2, 32))
+    with pytest.raises(ValueError, match="external_product_mac"):
+        external_product.external_product_mac(meta(1, 2, 2, 8), meta(2, 2, 2, 8))
+
+
+# --- the fused path's pieces --------------------------------------------------
+
+def test_bsk_to_planes_matches(ctx_2bit, tctx_2bit):
+    want = np.asarray(jfused.bsk_to_planes(ctx_2bit.bsk_f))
+    got = fused_pbs.bsk_to_planes(tctx_2bit.bsk_f)
+    assert got.dtype == torch.float64 and got.is_contiguous()
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_keyswitch_fused_bit_identical(ctx_2bit, tctx_2bit, pallas_engine_2bit):
+    p = ctx_2bit.params
+    key = jax.random.PRNGKey(3)
+    cts = jnp.stack([ctx_2bit.encrypt(jax.random.fold_in(key, i), i % 4) for i in range(5)])
+    want = np.asarray(pallas_engine_2bit.fused_pack.keyswitch(cts))
+    n_from, level, t = tctx_2bit.ksk.shape
+    got = fused_pbs.keyswitch_fused(u64_to_tensor(np.asarray(cts), "cpu"),
+                                    tctx_2bit.ksk.reshape(n_from * level, t), p)
+    assert np.array_equal(tensor_to_u64(got), want)
+
+
+def test_external_product_planes_matches(ctx_2bit, tctx_2bit):
+    """One external product from the same inputs: the torus results agree
+    to within the f64 transform rounding.  The coefficients before the
+    fold onto the torus reach about 2^85, where one f64 ulp is 2^33; the
+    bound 2^40 is still 2^21 below delta = 2^61."""
+    p = ctx_2bit.params
+    glwe_cts = np.random.default_rng(11).integers(0, 2 ** 64, (3, p.k + 1, p.N),
+                                                  dtype=np.uint64)
+    jplanes = jfused.bsk_to_planes(ctx_2bit.bsk_f)
+    want = np.asarray(jfused.external_product_planes(jplanes[5], jnp.asarray(glwe_cts), p))
+    got = fused_pbs.external_product_planes(fused_pbs.bsk_to_planes(tctx_2bit.bsk_f)[5],
+                                            u64_to_tensor(glwe_cts, "cpu"), p)
+    diff = (tensor_to_u64(got) - want).view(np.int64)
+    assert np.abs(diff).max() < 2 ** 40
