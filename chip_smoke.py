@@ -8,15 +8,18 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
 
 1. port keygen on the card from a seeded CUDA generator;
 2. each kernel against its plain PyTorch version on the main path's
-   shapes (keyswitch bit-exact; FFTs within 1e-12 of the output scale;
-   MAC within 1e-9 relative), timed with CUDA events beside its plain
+   shapes (keyswitch bit-exact; FFTs, and the CMux step's digit
+   transforms, within 1e-12 of the output scale; MAC within 1e-9
+   relative; the step's torus inverse within 1e-12 of the float
+   inverse's scale plus one), timed with CUDA events beside its plain
    version, a PyTorch library call where one computes the same function,
    and the card's bound;
 3. the main path: two chained `lut_batch_tables` rounds on the fused
    backend through one resident pack, each decrypting to its plaintext
    table, the reference backend decrypt-identical on round 1, and the
    per-round kernel launch counts (keyswitch 1, each FFT and the MAC n);
-4. one more fused round under `torch.profiler`: its Chrome trace goes to
+4. one more fused round under `torch.profiler`, which must hold at most
+   3 device events per CMux step plus 200: its Chrome trace goes to
    `build/profile_round.json`, and the device time by kernel is printed
    with the device's idle share, that busy time against the wall time of
    the untraced round 2 (tracing slows the host, not the device).
@@ -81,8 +84,10 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def profile_round(run, untraced_s: float, smi: str) -> None:
-    """Trace one call of `run` and print where the device time goes."""
+def profile_round(run, untraced_s: float, smi: str, steps: int) -> None:
+    """Trace one call of `run` and print where the device time goes.
+    Raises if the round holds more than 3 device events per CMux step
+    (forward, MAC, inverse) plus 200 for the rest of the round."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -103,6 +108,11 @@ def profile_round(run, untraced_s: float, smi: str) -> None:
         by_name[e["name"]][0] += 1
         by_name[e["name"]][1] += e["dur"] / 1e3
     busy = sum(v[1] for v in by_name.values())
+    print(f"profile: {len(events)} device events per round, "
+          f"{len(events) / steps:.2f} per CMux step ({steps} steps)")
+    if len(events) > 3 * steps + 200:
+        raise AssertionError(f"profile: {len(events)} device events in a round, more "
+                             f"than 3 per CMux step + 200 = {3 * steps + 200}")
     print(f"profile: device busy {busy:.1f} ms per round ({len(events)} device "
           f"events; traced round {wall:.3f} s wall), idle share "
           f"{1 - busy / (untraced_s * 1e3):.3f} of the untraced round's "
@@ -120,7 +130,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.core import decompose as dec
+    from repro_torch.core import decompose as dec, torus
     from repro_torch.core.engine import TaurusEngine
     from repro_torch.core.params import PAPER_PARAMS
     from repro_torch.core.pbs import TFHEContext
@@ -209,17 +219,29 @@ def main() -> int:
 
     J = (p.k + 1) * p.pbs_level
     K, M = p.k + 1, p.N // 2
+    fft_src = "src/repro_torch/kernels/csrc/fft.cu"
+    fwd_tpu = "src/repro/kernels/fourstep_fft.py:119"
+    inv_tpu = "src/repro/kernels/fourstep_fft.py:139"
     x = torch.randint(-(1 << (p.pbs_base_log - 1)), 1 << (p.pbs_base_log - 1),
                       (B * J, p.N), generator=gen, device="cuda").to(torch.float64)
     u = torch.complex(x[:, :M], x[:, M:]) * ff.core_fft.twist(p.N, x.device)
     fft_flops = 5 * M * (M.bit_length() - 1) * x.shape[0]
-    spec = phase("fft_forward", "src/repro_torch/kernels/csrc/fft.cu",
-                 "src/repro/kernels/fourstep_fft.py:119",
-                 lambda: ff.fft_forward(x), lambda: ff.fft_forward_plain(x),
-                 lambda: torch.fft.fft(u, dim=-1), rel(1e-12), 1e-12,
-                 2 * nbytes(x), fft_flops)
+    phase("fft_forward", fft_src, fwd_tpu,
+          lambda: ff.fft_forward(x), lambda: ff.fft_forward_plain(x),
+          lambda: torch.fft.fft(u, dim=-1), rel(1e-12), 1e-12,
+          2 * nbytes(x), fft_flops)
 
-    dig = spec.reshape(B, J, 2, M).transpose(1, 2).contiguous()
+    # A CMux step's prologue at the main path's shapes: an accumulator of
+    # random torus values, shifts from the mod switch's range [0, 2N).
+    acc_in = torus.random_torus(gen, (B, K, p.N), device="cuda")
+    shifts = torch.randint(0, 2 * p.N, (B,), generator=gen, device="cuda")
+    dig = phase("fft_forward_digits", fft_src, fwd_tpu,
+                lambda: ff.fft_forward_digits(acc_in, shifts, p.pbs_base_log, p.pbs_level),
+                lambda: ff.fft_forward_digits_plain(acc_in, shifts, p.pbs_base_log,
+                                                    p.pbs_level),
+                None, rel(1e-12), 1e-12,
+                nbytes(acc_in, shifts) + B * 2 * J * M * 8, fft_flops)
+
     bsk_i = pack.bsk_planes[0]
     d_c, w_c = torch.complex(dig[:, 0], dig[:, 1]), torch.complex(bsk_i[0], bsk_i[1])
     out = phase("external_product_mac", "src/repro_torch/kernels/csrc/external_product.cu",
@@ -231,11 +253,27 @@ def main() -> int:
 
     planes = out.transpose(1, 2).reshape(B * K, 2, M).contiguous()
     z = torch.complex(planes[:, 0], planes[:, 1])
-    phase("fft_inverse", "src/repro_torch/kernels/csrc/fft.cu",
-          "src/repro/kernels/fourstep_fft.py:139",
+    inv_flops = 5 * M * (M.bit_length() - 1) * planes.shape[0]
+    phase("fft_inverse", fft_src, inv_tpu,
           lambda: ff.fft_inverse(planes), lambda: ff.fft_inverse_plain(planes),
           lambda: torch.fft.ifft(z, dim=-1), rel(1e-12), 1e-12,
-          2 * nbytes(planes), 5 * M * (M.bit_length() - 1) * planes.shape[0])
+          2 * nbytes(planes), inv_flops)
+
+    # The torus output may differ by the f64 transform's rounding (1e-12 of
+    # the float inverse's scale) and one unit of the final rounding.
+    x_scale = ff.fft_inverse_plain(planes).abs().max().item()
+
+    def torus_close(got, want):
+        d = (got - want).abs().max().item()
+        lim = 1e-12 * x_scale + 1
+        return {"abs": float(d), "ok": d <= lim,
+                "text": f"max wrapped int64 diff {d:.3e} (float scale {x_scale:.3e})"}
+
+    phase("fft_inverse_torus", fft_src, inv_tpu,
+          lambda: ff.fft_inverse_torus(out, acc_in),
+          lambda: ff.fft_inverse_torus_plain(out, acc_in), None,
+          torus_close, "1e-12 x scale + 1",
+          nbytes(out, acc_in) + nbytes(acc_in), inv_flops)
 
     # -- the main path: two chained fused rounds, reference on round 1 --------
     rng = torch.Generator().manual_seed(SEED)
@@ -283,10 +321,11 @@ def main() -> int:
           f"(half a slot is 2^{-(p.width + p.padding_bits + 1)}), "
           f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {smi}")
 
-    profile_round(lambda: engine.lut_batch_tables(out2, t1), s2, smi)
+    profile_round(lambda: engine.lut_batch_tables(out2, t1), s2, smi, p.n)
 
+    counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
     for row in kernels:
-        row["launches"] = round2[row["name"]]
+        row["launches"] = round2[counter.get(row["name"], row["name"])]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel.
 
   keyswitch         — the LPU key-switch MAC, native 64-bit wrapping MAC.
-  fourstep_fft      — the four-step negacyclic FFT, f64, two passes.
+  fourstep_fft      — the four-step negacyclic FFT, f64, one launch per
+                      transform on a thread-block cluster; its digit and
+                      torus entry points carry a CMux step's glue.
   external_product  — the BRU transform-domain MAC with batch BSK reuse.
   fused_pbs         — the kernels wired into the batched PBS hot path with
                       resident key operands (`kernel_backend="fused"`).

@@ -1,52 +1,52 @@
-"""Four-step negacyclic FFT, f64, natural spectrum order.
+"""Four-step negacyclic FFT, f64, natural spectrum order, and the CMux
+step's glue folded into it.
 
-    forward:  real coeffs (B, N) -> spectrum planes (B, 2, M), M = N/2,
-              spectrum[m] = FFT_M(fold+twist(x))[m]   (as `core.fft.forward`)
-    inverse:  spectrum planes (B, 2, M) -> real coeffs (B, N)
+    fft_forward:         real coeffs (B, N) -> spectrum planes (B, 2, M),
+                         M = N/2, spectrum = `core.fft.forward`
+    fft_inverse:         spectrum planes (B, 2, M) -> real coeffs (B, N)
+    fft_forward_digits:  int64 (B, K, N) [+ shifts (B,)] -> (B, 2, J, M)
+                         planes of the gadget digits of X^shift * src - src
+                         (or of src), J = K * level, row j = u * level + l:
+                         the external-product MAC's dig layout
+    fft_inverse_torus:   the MAC's (B, 2, K, M) output -> int64 (B, K, N)
+                         on the torus [+ acc]
 
 Replaces the Pallas TPU kernels `repro/kernels/fourstep_fft.py::fft_forward`
-and `::fft_inverse` with `csrc/fft.cu`.  A row at N = 32,768 and the
-TPU's 128 x 128 DFT matrix each outgrow a Hopper block's shared memory,
-so the split M = R * C (`factor_m`) runs as two passes — R-point column
-FFTs with fold/twist and twiddle, then C-point row FFTs with the
-transposed store — with radix-2 FFTs in shared memory in place of the
-TPU's DFT matrix products.  Only f64 is ported: an f32 transform puts
-about 2^60 of error into the 64-bit torus.
+and `::fft_inverse` with `csrc/fft.cu`.  All four entry points run one
+kernel launch each: a thread-block cluster per row (8 blocks for
+M >= 4096) splits M = R * C as `factor_m` does, does the R-point column
+FFTs in shared memory, exchanges through distributed shared memory and
+does the C-point row FFTs, with radix-16 Stockham passes in registers, so
+no intermediate touches device memory.  The digit and torus entry points
+fold a blind-rotation step's rotate, subtract, decompose, cast,
+`float_to_torus` and accumulator add into the same launch: a CMux step is
+forward, MAC, inverse.  Their launches count under `fft_forward` and
+`fft_inverse`.  Only f64 is ported: an f32 transform puts about 2^60 of
+error into the 64-bit torus.
 
 Bound on the card: bytes (a 24-row forward call at gpt2 reads and writes
-12.6 MB; its twist and root tables stay in L2 across a round's calls).
-The wrappers launch the kernels for CUDA tensors and run the plain
-`torch.fft` versions only for CPU tensors.
+12.6 MB; `fft_inverse_torus` with `acc` moves 18.9 MB).  The wrappers
+launch the kernel for CUDA tensors and run the plain versions (composed of
+`torch.fft` and the core ops) only for CPU tensors.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from repro_torch.core import fft as core_fft
+from repro_torch.core import batch as batch_mod, decompose as dec, fft as core_fft, torus
 from repro_torch.kernels import _build
-
-_ROOTS: dict = {}
 
 
 def factor_m(M: int) -> tuple[int, int]:
-    """Pick R*C = M mirroring the paper's 256x128 for M = 2^15."""
+    """The split R*C = M the kernel uses, mirroring the paper's 256x128 for
+    M = 2^15."""
     assert M & (M - 1) == 0 and M >= 4
     lg = M.bit_length() - 1
     r = min(256, 1 << ((lg + 1) // 2))
     return r, M // r
 
 
-def _roots(M: int, device) -> torch.Tensor:
-    """exp(-2 pi i k / M), k < M, complex128 on `device` (cached)."""
-    key = (M, str(device))
-    w = _ROOTS.get(key)
-    if w is None:
-        w = _ROOTS[key] = torch.as_tensor(
-            np.exp(-2j * np.pi * np.arange(M) / M), dtype=torch.complex128,
-            device=device)
-    return w
-
+# --- plain versions ------------------------------------------------------------
 
 def fft_forward_plain(x: torch.Tensor) -> torch.Tensor:
     """real (B, N) -> (B, 2, N/2) f64 stacked re/im (the kernel's layout)."""
@@ -59,33 +59,56 @@ def fft_inverse_plain(spec: torch.Tensor) -> torch.Tensor:
     return core_fft.inverse(torch.complex(spec[:, 0], spec[:, 1]))
 
 
-def _launch(name: str, inp: torch.Tensor, out: torch.Tensor, N: int) -> None:
-    M = N // 2
-    R, C = factor_m(M)
-    scratch = torch.empty((inp.shape[0], M), dtype=torch.complex128,
-                          device=inp.device)
-    twist, roots = core_fft.twist(N, inp.device), _roots(M, inp.device)
-    fn = _build.function("fft", f"{name}_launch", 5, 4)
-    _build.launch(name, fn, inp.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                  twist.data_ptr(), roots.data_ptr(), inp.shape[0], M, R, C,
-                  device=inp.device)
+def fft_forward_digits_plain(src: torch.Tensor, shifts: torch.Tensor | None,
+                             base_log: int, level: int) -> torch.Tensor:
+    """int64 (B, K, N), shifts (B,) or None -> (B, 2, K*level, N/2) f64."""
+    B, K, N = src.shape
+    v = src if shifts is None else batch_mod.rotate_batch(src, shifts, N) - src
+    digs = dec.decompose(v, base_log, level).movedim(-1, -2).reshape(B * K * level, N)
+    spec = fft_forward_plain(digs.to(torch.float64))
+    return spec.reshape(B, K * level, 2, N // 2).transpose(1, 2).contiguous()
 
 
-def _check(name: str, t: torch.Tensor, dims: int) -> None:
+def fft_inverse_torus_plain(planes: torch.Tensor,
+                            acc: torch.Tensor | None) -> torch.Tensor:
+    """(B, 2, K, M) f64, acc (B, K, 2M) int64 or None -> int64 (B, K, 2M)."""
+    B, _, K, M = planes.shape
+    coeffs = fft_inverse_plain(planes.transpose(1, 2).reshape(B * K, 2, M))
+    out = torus.float_to_torus(coeffs).reshape(B, K, 2 * M)
+    return out if acc is None else acc + out
+
+
+# --- kernel wrappers -----------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, dims: int, dtype: torch.dtype) -> None:
     _build.require(name, t.device.type == "cuda", f"needs a CUDA tensor, got {t.device}")
-    _build.require(name, t.dtype == torch.float64, f"needs float64, got {t.dtype}")
+    _build.require(name, t.dtype == dtype, f"needs {dtype}, got {t.dtype}")
     _build.require(name, t.dim() == dims and t.is_contiguous(),
                    f"needs a contiguous {dims}-d tensor, got {tuple(t.shape)}")
+
+
+def _check_n(name: str, N: int) -> None:
+    _build.require(name, 8 <= N <= 65536 and N & (N - 1) == 0,
+                   f"needs N a power of two in [8, 65536], got {N}")
+
+
+def _check_aux(name: str, aux: torch.Tensor, like: torch.Tensor, shape: tuple) -> None:
+    _build.require(name, aux.device == like.device and aux.dtype == torch.int64
+                   and tuple(aux.shape) == shape and aux.is_contiguous(),
+                   f"needs a contiguous int64 {shape} tensor on {like.device}, got "
+                   f"{aux.dtype} {tuple(aux.shape)} on {aux.device}")
 
 
 def fft_forward(x: torch.Tensor) -> torch.Tensor:
     """Negacyclic forward transform: real (B, N) -> (B, 2, N/2) planes."""
     if x.device.type == "cpu":
         return fft_forward_plain(x)
-    _check("fft_forward", x, 2)
+    _check("fft_forward", x, 2, torch.float64)
     B, N = x.shape
+    _check_n("fft_forward", N)
     out = torch.empty((B, 2, N // 2), dtype=torch.float64, device=x.device)
-    _launch("fft_forward", x, out, N)
+    fn = _build.function("fft", "fft_forward_launch", 2, 2)
+    _build.launch("fft_forward", fn, x.data_ptr(), out.data_ptr(), B, N, device=x.device)
     return out
 
 
@@ -93,10 +116,63 @@ def fft_inverse(spec: torch.Tensor) -> torch.Tensor:
     """Inverse: (B, 2, M) planes -> real coeffs (B, 2M)."""
     if spec.device.type == "cpu":
         return fft_inverse_plain(spec)
-    _check("fft_inverse", spec, 3)
+    _check("fft_inverse", spec, 3, torch.float64)
     _build.require("fft_inverse", spec.shape[1] == 2,
                    f"needs (B, 2, M) planes, got {tuple(spec.shape)}")
     B, _, M = spec.shape
+    _check_n("fft_inverse", 2 * M)
     out = torch.empty((B, 2 * M), dtype=torch.float64, device=spec.device)
-    _launch("fft_inverse", spec, out, 2 * M)
+    fn = _build.function("fft", "fft_inverse_launch", 2, 2)
+    _build.launch("fft_inverse", fn, spec.data_ptr(), out.data_ptr(), B, 2 * M,
+                  device=spec.device)
+    return out
+
+
+def fft_forward_digits(src: torch.Tensor, shifts: torch.Tensor | None,
+                       base_log: int, level: int) -> torch.Tensor:
+    """A CMux step's prologue and forward transform in one launch.
+
+    src (B, K, N) int64 torus polys, shifts (B,) int64 in [0, 2N) or None
+    -> (B, 2, K*level, N/2) f64 planes of the signed gadget digits of
+    X^shifts[b] * src[b] - src[b] (of src[b] when shifts is None), digit
+    row j = u*level + l, level l = 0 the most significant."""
+    if src.device.type == "cpu":
+        return fft_forward_digits_plain(src, shifts, base_log, level)
+    name = "fft_forward_digits"
+    _check(name, src, 3, torch.int64)
+    B, K, N = src.shape
+    _check_n(name, N)
+    _build.require(name, 0 < base_log <= 32 and level > 0 and base_log * level <= 64,
+                   f"needs 0 < base_log <= 32 and base_log * level <= 64, got "
+                   f"{base_log} x {level}")
+    if shifts is not None:
+        _check_aux(name, shifts, src, (B,))
+    out = torch.empty((B, 2, K * level, N // 2), dtype=torch.float64, device=src.device)
+    fn = _build.function("fft", "fft_forward_digits_launch", 3, 5)
+    _build.launch("fft_forward", fn, src.data_ptr(),
+                  None if shifts is None else shifts.data_ptr(), out.data_ptr(),
+                  B, K, N, base_log, level, device=src.device)
+    return out
+
+
+def fft_inverse_torus(planes: torch.Tensor, acc: torch.Tensor | None) -> torch.Tensor:
+    """A CMux step's inverse transform and epilogue in one launch.
+
+    planes (B, 2, K, M) f64, acc (B, K, 2M) int64 or None -> a new int64
+    (B, K, 2M) tensor: the inverse transform rounded onto the torus as
+    `torus.float_to_torus`, plus acc (wrapping) when given."""
+    if planes.device.type == "cpu":
+        return fft_inverse_torus_plain(planes, acc)
+    name = "fft_inverse_torus"
+    _check(name, planes, 4, torch.float64)
+    B, two, K, M = planes.shape
+    _build.require(name, two == 2, f"needs (B, 2, K, M) planes, got {tuple(planes.shape)}")
+    _check_n(name, 2 * M)
+    if acc is not None:
+        _check_aux(name, acc, planes, (B, K, 2 * M))
+    out = torch.empty((B, K, 2 * M), dtype=torch.int64, device=planes.device)
+    fn = _build.function("fft", "fft_inverse_torus_launch", 3, 3)
+    _build.launch("fft_inverse", fn, planes.data_ptr(),
+                  None if acc is None else acc.data_ptr(), out.data_ptr(),
+                  B, K, 2 * M, device=planes.device)
     return out

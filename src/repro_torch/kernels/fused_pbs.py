@@ -6,9 +6,11 @@ explicit as RESIDENT operands.
 
     keyswitch     `kernels.keyswitch` — 64-bit MAC over the gadget digits
                   of the whole batch, bit-identical to `core.lwe.keyswitch`.
-    blind rotate  per step: decompose the CMux difference, forward FFT
-                  kernel, one MAC kernel against the resident BSK slice,
-                  inverse FFT kernel, back onto the torus.
+    blind rotate  per step, three launches: the forward FFT kernel takes
+                  the rotate, subtract and decompose of the CMux
+                  difference; one MAC kernel against the resident BSK
+                  slice; the inverse FFT kernel rounds back onto the
+                  torus and adds the accumulator.
     extract       `core.glwe.sample_extract`.
 
 `FusedPbsPack` is the residency contract: the Fourier BSK is laid out in
@@ -24,7 +26,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import batch as batch_mod, decompose as dec, glwe, lwe, torus
+from repro_torch.core import batch as batch_mod, decompose as dec, glwe, lwe
 from repro_torch.core.params import TFHEParams
 from repro_torch.kernels import external_product, fourstep_fft, keyswitch
 
@@ -53,18 +55,12 @@ def keyswitch_fused(big_cts: torch.Tensor, ksk: torch.Tensor,
 def external_product_planes(bsk_i: torch.Tensor, glwe_cts: torch.Tensor,
                             params: TFHEParams) -> torch.Tensor:
     """One resident BSK slice (2, J, K, M) applied to a GLWE batch
-    (B, K, N): decompose, forward FFT kernel, MAC kernel, inverse FFT
-    kernel, back onto the torus."""
-    B, K, N = glwe_cts.shape
-    M = N // 2
-    J = K * params.pbs_level
-    digs = dec.decompose(glwe_cts, params.pbs_base_log, params.pbs_level)
-    digs = digs.movedim(-1, -2).reshape(B * J, N)          # j = u*level + l
-    spec = fourstep_fft.fft_forward(digs.to(torch.float64))
-    dig_planes = spec.reshape(B, J, 2, M).transpose(1, 2).contiguous()
-    out = external_product.external_product_mac(dig_planes, bsk_i)  # (B, 2, K, M)
-    coeffs = fourstep_fft.fft_inverse(out.transpose(1, 2).reshape(B * K, 2, M))
-    return torus.float_to_torus(coeffs).reshape(B, K, N)
+    (B, K, N): the digits' forward transforms, the MAC, the inverse
+    transform back onto the torus (three launches)."""
+    dig = fourstep_fft.fft_forward_digits(glwe_cts, None, params.pbs_base_log,
+                                          params.pbs_level)
+    out = external_product.external_product_mac(dig, bsk_i)      # (B, 2, K, M)
+    return fourstep_fft.fft_inverse_torus(out, None)
 
 
 def blind_rotate_fused(lut_glwes: torch.Tensor, ms_cts: torch.Tensor,
@@ -73,13 +69,18 @@ def blind_rotate_fused(lut_glwes: torch.Tensor, ms_cts: torch.Tensor,
 
     lut_glwes (B, k+1, N); ms_cts (B, n+1) mod-switched to [0, 2N);
     bsk_planes (n, 2, J, K, M) — walked once, shared by the whole batch.
+    Each CMux step is three launches: the digits of X^a_i * acc - acc
+    through the forward transform, the MAC, and the inverse transform
+    rounded onto the torus and added to acc.
     """
     N = params.N
     a, b = ms_cts[:, :-1], ms_cts[:, -1]
     acc = batch_mod.rotate_batch(lut_glwes, (2 * N - b) % (2 * N), N)
-    for a_i, bsk_i in zip(a.T, bsk_planes):
-        diff = batch_mod.rotate_batch(acc, a_i, N) - acc
-        acc = acc + external_product_planes(bsk_i, diff, params)
+    for a_i, bsk_i in zip(a.T.contiguous(), bsk_planes):
+        dig = fourstep_fft.fft_forward_digits(acc, a_i, params.pbs_base_log,
+                                              params.pbs_level)
+        out = external_product.external_product_mac(dig, bsk_i)
+        acc = fourstep_fft.fft_inverse_torus(out, acc)
     return acc
 
 

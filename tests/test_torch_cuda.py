@@ -7,7 +7,9 @@ there without the conftest:
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Tolerances are the contract's: the keyswitch MAC bit-exact, the FFTs
-within 1e-12 of the output scale, the MAC within 1e-9 relative.
+within 1e-12 of the output scale, the MAC within 1e-9 relative, and the
+torus output of `fft_inverse_torus` within 1e-12 of the float inverse's
+scale plus one (the f64 transform's rounding, then one torus unit).
 """
 import pytest
 
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.engine import TaurusEngine  # noqa: E402
 from repro_torch.core.params import TEST_PARAMS, TEST_PARAMS_K2  # noqa: E402
+from repro_torch.core import torus  # noqa: E402
 from repro_torch.core.pbs import TFHEContext  # noqa: E402
 from repro_torch.kernels import external_product, fourstep_fft, keyswitch  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
@@ -52,6 +55,60 @@ def test_fft_forward_inverse(gen, N):
     back = fourstep_fft.fft_inverse(spec)
     assert close(back, fourstep_fft.fft_inverse_plain(spec), 1e-12)
     assert close(back, x, 1e-12)
+
+
+BASE_LOG = {1: 22, 2: 14, 3: 10}
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("N", [8, 512, 2048, 32768, 65536])
+def test_cmux_step_entry_points(gen, N, K, level):
+    """One CMux step through the three launches: the digit transforms of
+    X^s * acc - acc, the MAC on the dig planes they write, the inverse
+    rounded onto the torus and added to acc; each against its plain
+    version on the same inputs."""
+    B = 5
+    acc = torus.random_torus(gen, (B, K, N), device="cuda")
+    shifts = torch.randint(0, 2 * N, (B,), generator=gen, device="cuda")
+    reset_launch_counts()
+    dig = fourstep_fft.fft_forward_digits(acc, shifts, BASE_LOG[level], level)
+    assert launch_counts()["fft_forward"] == 1
+    assert dig.shape == (B, 2, K * level, N // 2) and dig.is_contiguous()
+    assert close(dig, fourstep_fft.fft_forward_digits_plain(acc, shifts, BASE_LOG[level],
+                                                            level), 1e-12)
+    no_shift = fourstep_fft.fft_forward_digits(acc, None, BASE_LOG[level], level)
+    assert close(no_shift, fourstep_fft.fft_forward_digits_plain(acc, None, BASE_LOG[level],
+                                                                 level), 1e-12)
+    bsk = torch.randn((2, K * level, K, N // 2), generator=gen, device="cuda",
+                      dtype=torch.float64) * 2.0 ** 40
+    out = external_product.external_product_mac(dig, bsk)
+    assert close(out, external_product.external_product_mac_plain(dig, bsk), 1e-9)
+    reset_launch_counts()
+    got = fourstep_fft.fft_inverse_torus(out, acc)
+    assert launch_counts()["fft_inverse"] == 1
+    want = fourstep_fft.fft_inverse_torus_plain(out, acc)
+    scale = fourstep_fft.fft_inverse_plain(
+        out.transpose(1, 2).reshape(B * K, 2, N // 2)).abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-12 * scale + 1
+    bare = fourstep_fft.fft_inverse_torus(out, None)
+    assert (bare - fourstep_fft.fft_inverse_torus_plain(out, None)).abs().max().item() \
+        <= 1e-12 * scale + 1
+
+
+@pytest.mark.parametrize("v", [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 2.0 ** 32 + 0.5,
+                               -(2.0 ** 33) - 0.5, 2.0 ** 52 + 1, 2.0 ** 63,
+                               -(2.0 ** 63), 2.0 ** 64 + 2.0 ** 40, 2.0 ** 94,
+                               -(2.0 ** 94), 3.0 * 2.0 ** 92])
+def test_fft_inverse_torus_rounds_exactly(gen, v):
+    """A constant spectrum v at N = 8 inverts exactly to v at coefficient
+    0: the kernel's rounding of exact halves and of values near 2^94 must
+    equal `float_to_torus`'s bit for bit."""
+    planes = torch.zeros((1, 2, 1, 4), dtype=torch.float64, device="cuda")
+    planes[:, 0] = v
+    want = torus.float_to_torus(torch.tensor([v] + [0.0] * 7, dtype=torch.float64,
+                                             device="cuda"))
+    assert torch.equal(fourstep_fft.fft_inverse_torus(planes, None)[0, 0], want)
 
 
 @pytest.mark.parametrize("J,K", [(1, 1), (2, 1), (3, 1), (2, 2), (4, 2), (6, 2),
