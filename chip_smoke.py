@@ -22,16 +22,34 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    3 device events per CMux step plus 200: its Chrome trace goes to
    `build/profile_round.json`, and the device time by kernel is printed
    with the device's idle share, that busy time against the wall time of
-   the untraced round 2 (tracing slows the host, not the device).
+   the untraced round 2 (tracing slows the host, not the device);
+5. the radix path: the quickstart program `((a * b).relu(), a < b)` on
+   32-bit integers of 16 two-bit digits, traced and run by
+   `Session(ctx, backend=..., kernel_backend="fused")` for the `eager` and
+   the `local` backend on one pair of seeded values whose product wraps
+   into the negative half.  Each must decrypt to the plaintext oracle,
+   run the rounds (and rows per round) that a dry run of the same program
+   through a stand-in engine plans, which must be 24 rounds of 753 rows
+   in all (the counts that
+   tests/test_torch_api.py::test_quickstart32_rounds_match_jax_runtime_at_gpt2
+   holds against the JAX package's runtime), and launch the kernels
+   rounds x (1, n, n, n) times; each round's rows and wall time are
+   printed;
+6. each kernel again at the largest round's shapes (288 rows), against
+   its plain version, timed one call at a time and back to back, and
+   that round under `torch.profiler` (`build/profile_round288.json`):
+   device time by kernel, busy and idle share, peak device memory.
 
-Prints the card, the build time, a line per phase, a `{"kernels": ...}`
-JSON line and, last, `{"ok": true, "device": {...}}`.  Any failure
+Prints the card, the build time, a line per phase, a `{"radix": ...}` and
+a `{"kernels": ...}` JSON line and, last, `{"ok": true, "device": {...}}`.  Any failure
 raises and exits nonzero.  Needs CUDA; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -43,7 +61,12 @@ SRC = ROOT / "src"
 SEED = 2509
 B = 12
 REPEATS = 20
+B2B_LAUNCHES = 50           # launches per back-to-back timing
 SLEEP_CYCLES = 20_000_000   # about 10 ms of device time at the H100's clocks
+# the 32-bit quickstart program at gpt2: rounds and dispatched rows, as the
+# JAX package's runtime runs it (tests/test_torch_api.py holds both packages
+# to these on the CPU)
+QUICKSTART_ROUNDS, QUICKSTART_ROWS = 24, 753
 
 # Data-sheet peaks by card (NVIDIA H100 data sheet): memory bytes/s, FP64
 # FLOP/s (tensor cores).  Matched on the name nvidia-smi reports.
@@ -80,23 +103,43 @@ def cuda_ms(fn, reps: int = REPEATS) -> float:
     return statistics.median(times)
 
 
+def b2b_ms(fn, launches: int = B2B_LAUNCHES) -> float:
+    """Device time per call of `launches` calls issued back to back,
+    queued behind a device-side sleep so the host's enqueue of all of
+    them is hidden: the guide's many-launch kernel time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def profile_round(run, untraced_s: float, smi: str, steps: int) -> None:
+def profile_round(run, untraced_s: float, smi: str, steps: int,
+                  trace: str = "profile_round.json") -> dict:
     """Trace one call of `run` and print where the device time goes.
     Raises if the round holds more than 3 device events per CMux step
-    (forward, MAC, inverse) plus 200 for the rest of the round."""
+    (forward, MAC, inverse) plus 200 for the rest of the round.  Returns
+    the call's result and the device busy ms, idle share and ms by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+        result = run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    path = ROOT / "build" / "profile_round.json"
+    path = ROOT / "build" / trace
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = [e for e in json.loads(path.read_text())["traceEvents"]
@@ -119,6 +162,211 @@ def profile_round(run, untraced_s: float, smi: str, steps: int) -> None:
           f"{untraced_s:.3f} s on {smi}")
     for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{count:6d}  {name[:90]}")
+    return {"result": result, "busy_ms": busy, "events": len(events),
+            "idle_share": 1 - busy / (untraced_s * 1e3), "traced_wall_s": wall,
+            "by_kernel": {k[:60]: {"calls": c, "ms": ms} for k, (c, ms) in
+                          sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]}}
+
+
+class RoundLog:
+    """Duck-typed engine telemetry: one (name, rows, wall seconds) entry
+    per PBS round, timed between two device synchronisations."""
+
+    class _Null:
+        def inc(self, n=1):
+            pass
+
+        def observe(self, v):
+            pass
+
+    def __init__(self):
+        self.rounds = []
+
+    @contextlib.contextmanager
+    def span(self, name, cat=None, rows=0, **_):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.rounds.append((name, rows, time.perf_counter() - t0))
+
+    def counter(self, name):
+        return self._Null()
+
+    def histogram(self, name):
+        return self._Null()
+
+
+class ShapeEngine:
+    """Stand-in engine for a dry run: every PBS returns its input, so a
+    program runs its rounds on shapes alone and logs each round's rows."""
+    kernel_backend = "fused"
+
+    def __init__(self, device):
+        self.device = device
+        self.rows = []
+
+    def lut_batch(self, cts, polys):
+        self.rows.append(int(cts.shape[0]))
+        return cts
+
+    def keyswitch(self, cts):
+        return cts
+
+    def lut_batch_small(self, small, polys):
+        return self.lut_batch(small, polys)
+
+
+def logical_pbs(backend, graph) -> int:
+    """Logical PBS a backend ran: its integer context's plus the lut nodes'."""
+    ic = getattr(backend, "int_ctx", None) or backend.interp.int_ctx
+    return ic.stats["pbs"] + sum(n.n_elements for n in graph.nodes if n.op == "lut")
+
+
+def radix_phase(ctx, smi: str) -> dict:
+    """The quickstart program on 32-bit integers through the eager and the
+    local backend; raises on a wrong decrypt, a round count off the plan
+    or launch counts off rounds x (1, n, n, n).  Returns per-backend
+    results and the largest round's inputs and output (from eager)."""
+    import torch
+    from repro_torch.api import IntSpec, Session, make_backend
+    from repro_torch.kernels import _build
+    p = ctx.params
+    rng = random.Random(SEED)
+    while True:                     # a product that wraps into the negative half
+        a, b = rng.randrange(1 << 32), rng.randrange(1 << 32)
+        if (a * b) % (1 << 32) >= 1 << 31:
+            break
+    want = [0, [int(a < b)]]
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 1)
+    results, largest = {}, {}
+    for backend in ("eager", "local"):
+        sess = Session(ctx, backend=backend, kernel_backend="fused")
+        engine = sess.engine
+        log = engine.telemetry = RoundLog()
+        if backend == "eager":
+            real = engine.lut_batch
+
+            def spy(cts, polys):
+                out = real(cts, polys)
+                if cts.shape[0] > largest.get("rows", 0):
+                    largest.update(rows=cts.shape[0], cts=cts, polys=polys, out=out,
+                                   engine=engine)
+                return out
+            engine.lut_batch = spy
+        prog = sess.trace(lambda x, y: ((x * y).relu(), x < y),
+                          IntSpec(32, msg_bits=2), IntSpec(32, msg_bits=2))
+        enc = sess.encrypt_inputs(gen, [a, b], prog)
+        # the plan: the same program on shapes alone, through a stand-in engine
+        dry = ShapeEngine(ctx.device)
+        dry_backend = make_backend(backend, ctx, dry)
+        dry_backend.execute(prog, enc)
+        plan, plan_logical = dry.rows, logical_pbs(dry_backend, prog.graph)
+        if (len(plan), sum(plan)) != (QUICKSTART_ROUNDS, QUICKSTART_ROWS):
+            raise AssertionError(f"radix {backend}: the dry run plans {len(plan)} rounds "
+                                 f"of {sum(plan)} rows, want {QUICKSTART_ROUNDS} of "
+                                 f"{QUICKSTART_ROWS}")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = sess.run(prog, enc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        engine.telemetry = None
+        got = sess.decrypt_outputs(prog, outs)
+        got = [int(got[0]), [int(v) for v in got[1]]]
+        logical = logical_pbs(sess.backend, prog.graph)
+        rows = [r[1] for r in log.rounds]
+        nr = len(log.rounds)
+        expect = {"keyswitch_mac": nr, "fft_forward": nr * p.n, "fft_inverse": nr * p.n,
+                  "external_product_mac": nr * p.n}
+        print(f"radix {backend}: a={a} b={b} decrypt {got} oracle {want}; rounds "
+              f"planned {len(plan)} observed {nr}; PBS logical planned {plan_logical} observed "
+              f"{logical}, dispatched planned {sum(plan)} observed "
+              f"{sum(rows)}; program wall {wall:.3f} s; launches {counts} on {smi}")
+        for i, (name, r, sec) in enumerate(log.rounds):
+            print(f"  round {i + 1:2d} {name:15s} rows {r:4d} {sec * 1e3:9.2f} ms")
+        if got != want:
+            raise AssertionError(f"radix {backend}: decrypts {got}, oracle {want}")
+        if rows != plan or logical != plan_logical:
+            raise AssertionError(f"radix {backend}: rounds of {rows} rows ({logical} PBS) "
+                                 f"observed, {plan} ({plan_logical}) planned")
+        if counts != expect:
+            raise AssertionError(f"radix {backend}: launches {counts}, want {expect}")
+        results[backend] = {"a": a, "b": b, "decrypt": got, "oracle": want,
+                            "rounds_planned": len(plan), "rounds_observed": nr,
+                            "pbs_logical": logical, "pbs_dispatched": sum(rows),
+                            "wall_s": wall, "launches": counts,
+                            "rounds": [{"op": name, "rows": r, "wall_ms": sec * 1e3}
+                                       for name, r, sec in log.rounds]}
+    largest["wall_s"] = next(r["wall_ms"] for r in results["eager"]["rounds"]
+                             if r["rows"] == largest["rows"]) / 1e3
+    return {"results": results, "largest": largest}
+
+
+def kernels_at_rows(cts, pack, gen, mem_rate: float, fp64_rate: float,
+                    smi: str) -> dict:
+    """Each kernel on the shapes a round of `cts.shape[0]` rows gives it,
+    against its plain version, timed one call at a time and back to
+    back, beside its bound.  Returns {row name: measurements}."""
+    import torch
+    from repro_torch.core import decompose as dec, torus
+    from repro_torch.kernels import external_product as ep, fourstep_fft as ff
+    from repro_torch.kernels import keyswitch as ks
+    p = pack.params
+    R, K, M = cts.shape[0], p.k + 1, p.N // 2
+    J = K * p.pbs_level
+    digits = dec.decompose(cts[:, :-1], p.ks_base_log, p.ks_level)
+    digits = digits.reshape(R, -1).to(torch.int32).contiguous()
+    acc = torus.random_torus(gen, (R, K, p.N), device=cts.device)
+    shifts = torch.randint(0, 2 * p.N, (R,), generator=gen, device=cts.device)
+    dig = ff.fft_forward_digits(acc, shifts, p.pbs_base_log, p.pbs_level)
+    bsk_i = pack.bsk_planes[0]
+    mac = ep.external_product_mac(dig, bsk_i)
+    x_scale = ff.fft_inverse_plain(mac.transpose(1, 2).reshape(R * K, 2, M)).abs().max().item()
+    fft_flops = 5 * M * (M.bit_length() - 1)
+    # (run, plain, tolerance, bytes moved, f64 operations); the keyswitch's
+    # 64-bit integer MACs have no data-sheet peak, so its bound is bytes
+    cases = {
+        "keyswitch_mac": (lambda: ks.keyswitch_mac(digits, pack.ksk),
+                          lambda: ks.keyswitch_mac_plain(digits, pack.ksk), "exact",
+                          nbytes(digits, pack.ksk) + R * pack.ksk.shape[1] * 8, 0),
+        "fft_forward_digits": (
+            lambda: ff.fft_forward_digits(acc, shifts, p.pbs_base_log, p.pbs_level),
+            lambda: ff.fft_forward_digits_plain(acc, shifts, p.pbs_base_log, p.pbs_level),
+            1e-12, nbytes(acc, shifts, dig), fft_flops * R * J),
+        "external_product_mac": (lambda: ep.external_product_mac(dig, bsk_i),
+                                 lambda: ep.external_product_mac_plain(dig, bsk_i), 1e-9,
+                                 nbytes(dig, bsk_i, mac), 8 * R * J * K * M),
+        "fft_inverse_torus": (lambda: ff.fft_inverse_torus(mac, acc),
+                              lambda: ff.fft_inverse_torus_plain(mac, acc), "torus",
+                              nbytes(mac, acc, acc), fft_flops * R * K),
+    }
+    out = {}
+    for name, (run, plain, tol, moved, flops) in cases.items():
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        d = (got - want).abs().max().item()
+        if tol == "exact":
+            ok = torch.equal(got, want)
+        elif tol == "torus":
+            ok = d <= 1e-12 * x_scale + 1
+        else:
+            ok = d <= tol * want.abs().max().item()
+        del want
+        ms, ms_b2b = cuda_ms(run, 5), b2b_ms(run, 10)
+        t_bytes, t_ops = moved / mem_rate * 1e3, flops / fp64_rate * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        out[name] = {"rows": R, "ms": ms, "ms_b2b": ms_b2b, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": by, "mb": moved / 1e6, "max_abs_err": d}
+        print(f"phase {name} at {R} rows: max_abs_err {d:.3e} ({'ok' if ok else 'FAILED'}, "
+              f"limit {tol}), kernel_ms {ms:.4f}, back-to-back {ms_b2b:.4f}, bound_ms "
+              f"{max(t_bytes, t_ops):.4f} ({by}, {moved / 1e6:.2f} MB) on {smi}")
+        if not ok:
+            raise AssertionError(f"{name} at {R} rows disagrees with its plain version")
+    return out
 
 
 def main() -> int:
@@ -180,12 +428,13 @@ def main() -> int:
         e = err(got, want)
         row = {"name": name, "route": "cuda", "source": route_src,
                "replaces": replaces, "launches": None, "max_abs_err": e["abs"],
-               "ms": cuda_ms(run), "plain_ms": cuda_ms(plain, 5),
+               "ms": cuda_ms(run), "ms_b2b": b2b_ms(run), "plain_ms": cuda_ms(plain, 5),
                "library_ms": cuda_ms(library) if library else None}
         t_bytes, t_ops = moved / mem_rate * 1e3, flops / fp64_rate * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         print(f"phase {name}: {e['text']} (limit {tol}), kernel_ms {row['ms']:.4f}, "
+              f"back-to-back {row['ms_b2b']:.4f}, "
               f"plain_ms {row['plain_ms']:.4f}, library_ms {row['library_ms']}, "
               f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
               f"{moved / 1e6:.2f} MB) on {smi}")
@@ -322,10 +571,39 @@ def main() -> int:
           f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {smi}")
 
     profile_round(lambda: engine.lut_batch_tables(out2, t1), s2, smi, p.n)
+    del out1, out_ref, ref_engine
+
+    # -- the radix path: the quickstart program on 32-bit integers ----------
+    radix = radix_phase(ctx, smi)
+    largest = radix["largest"]
+    at_rows = kernels_at_rows(largest["cts"], pack, gen, mem_rate, fp64_rate, smi)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    big = profile_round(lambda: largest["engine"].lut_batch(largest["cts"], largest["polys"]),
+                        largest["wall_s"], smi, p.n, "profile_round288.json")
+    peak = torch.cuda.max_memory_allocated()
+    if _build.launch_counts() != per_round:
+        raise AssertionError(f"{largest['rows']}-row round launches {_build.launch_counts()}")
+    if not torch.equal(ctx.decrypt(big["result"]), ctx.decrypt(largest["out"])):
+        raise AssertionError(f"the profiled {largest['rows']}-row round decrypts unlike "
+                             "its run in the program")
+    print(f"profile {largest['rows']}-row round: device busy {big['busy_ms']:.1f} ms, idle "
+          f"share {big['idle_share']:.3f} of its untraced {largest['wall_s']:.3f} s, peak "
+          f"device memory {peak / 1e9:.2f} GB on {smi}")
+    print(json.dumps({"radix": radix["results"], "round288": {
+        "rows": largest["rows"], "wall_s": largest["wall_s"], "busy_ms": big["busy_ms"],
+        "idle_share": big["idle_share"], "events": big["events"], "peak_gb": peak / 1e9,
+        "by_kernel": big["by_kernel"], "kernels": at_rows}}))
 
     counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
     for row in kernels:
-        row["launches"] = round2[counter.get(row["name"], row["name"])]
+        key = counter.get(row["name"], row["name"])
+        row["launches"] = round2[key]
+        row["launches_radix"] = {b: r["launches"][key] for b, r in radix["results"].items()}
+        m = at_rows.get(row["name"])
+        if m is not None:
+            row.update({f"{k}_288": m[k] for k in ("ms", "ms_b2b", "bound_ms", "bound_by")})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import batch as batch_mod, glwe
+from repro_torch.core import batch as batch_mod, glwe, lwe, torus
 from repro_torch.core.params import TFHEParams
 from repro_torch.device import resolve_device
 
@@ -54,6 +54,7 @@ class TaurusEngine:
     params: TFHEParams
     bsk_f: torch.Tensor
     ksk: torch.Tensor
+    batch_per_device: int = 12  # paper's round-robin depth (Fig. 13b)
     # optional telemetry (duck-typed: span/counter/histogram); None keeps
     # the hot path untouched
     telemetry: Optional[object] = None
@@ -79,6 +80,21 @@ class TaurusEngine:
                 self.ksk.numel() * self.ksk.element_size())
 
     @property
+    def n_clusters(self) -> int:
+        """One card, one cluster: the mesh path is not ported yet."""
+        return 1
+
+    @property
+    def supports_ks_split(self) -> bool:
+        """Whether `keyswitch` + `lut_batch_small` may replace a
+        `lut_batch` (KS-level partial dedup): always, on one device."""
+        return True
+
+    @property
+    def batch_size(self) -> int:
+        return self.batch_per_device * self.n_clusters
+
+    @property
     def fused_pack(self):
         """The resident `FusedPbsPack` for the fused backend, built on
         first use and cached."""
@@ -88,6 +104,24 @@ class TaurusEngine:
             pack = self._fused_pack = FusedPbsPack.build(
                 self.bsk_f, self.ksk, self.params)
         return pack
+
+    # -- linear ops (LPU; no bootstrapping, Fig. 2b step 4) -----------------
+    def add(self, a, b):
+        return lwe.add(a, b)
+
+    def sub(self, a, b):
+        return lwe.sub(a, b)
+
+    def scalar_mul(self, a, c):
+        return lwe.scalar_mul(a, c)
+
+    def add_plain(self, a, msg):
+        return lwe.add_plain(a, torus.encode(msg, self.params.delta,
+                                             device=a.device))
+
+    def trivial(self, msg) -> torch.Tensor:
+        m = torus.encode(msg, self.params.delta, device=self.device)
+        return lwe.trivial(m, self.params.big_n)
 
     # -- PBS ------------------------------------------------------------------
     def _observe(self, name: str, rows: int, run):

@@ -30,9 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
-# kernel and nowhere else (the plain CPU path does not count).
+# kernel and nowhere else (the plain CPU path does not count).  Radix
+# programs run rounds from several threads, so updates hold a lock.
 LAUNCHES = {"keyswitch_mac": 0, "fft_forward": 0, "fft_inverse": 0,
             "external_product_mac": 0}
+_COUNT_LOCK = threading.Lock()
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
@@ -40,12 +42,14 @@ _LOCK = threading.Lock()
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -130,7 +134,8 @@ def launch(kernel: str, fn, *args, device: torch.device) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
                            f"({fn.error_string(rc).decode()})")
-    LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def require(kernel: str, cond: bool, what: str) -> None:

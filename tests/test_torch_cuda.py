@@ -9,14 +9,17 @@ there without the conftest:
 Tolerances are the contract's: the keyswitch MAC bit-exact, the FFTs
 within 1e-12 of the output scale, the MAC within 1e-9 relative, and the
 torus output of `fft_inverse_torus` within 1e-12 of the float inverse's
-scale plus one (the f64 transform's rounding, then one torus unit).
+scale plus one (the f64 transform's rounding, then one torus unit);
+PBS rounds and radix integer ops decrypt exactly to their oracles.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.compiler.ir import radix_round_plan  # noqa: E402
 from repro_torch.core.engine import TaurusEngine  # noqa: E402
-from repro_torch.core.params import TEST_PARAMS, TEST_PARAMS_K2  # noqa: E402
+from repro_torch.core.integer import IntegerContext  # noqa: E402
+from repro_torch.core.params import TEST_PARAMS, TEST_PARAMS_4BIT, TEST_PARAMS_K2  # noqa: E402
 from repro_torch.core import torus  # noqa: E402
 from repro_torch.core.pbs import TFHEContext  # noqa: E402
 from repro_torch.kernels import external_product, fourstep_fft, keyswitch  # noqa: E402
@@ -142,3 +145,42 @@ def test_fused_lut_batch_on_the_card(gen, p):
     ref = TaurusEngine.from_context(ctx, kernel_backend="reference").lut_batch_tables(
         cts, table)
     assert ctx.decrypt(ref).tolist() == ctx.decrypt(out).tolist()
+
+
+@pytest.fixture(scope="module")
+def int_ctx():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    return IntegerContext.create(TFHEContext.create(gen, TEST_PARAMS_4BIT)), gen
+
+
+RADIX_CASES = [("add", "radix_add", 0xBE, 0x7C, (0xBE + 0x7C) % 256),
+               ("mul", "radix_mul", 0xB7, 0x59, (0xB7 * 0x59) % 256),
+               ("compare", "radix_cmp", 0x34, 0x9A, 1),
+               ("relu_clamp", "radix_relu", -5, None, 0),
+               ("relu_clamp", "radix_relu", 0x5A, None, 0x5A)]
+
+
+@pytest.mark.parametrize("op,ir_op,a,b,want", RADIX_CASES)
+def test_radix_integers_on_the_card(int_ctx, op, ir_op, a, b, want):
+    """8-bit radix integers (4 two-bit digits) with the port's own keys on
+    the card, through the fused engine: each op decrypts to the oracle,
+    runs as many rounds as its plan, and every round launches the four
+    kernels (1, n, n, n) times."""
+    ic, gen = int_ctx
+    assert ic.engine.kernel_backend == "fused" and ic.engine.device.type == "cuda"
+    ca = ic.encrypt(gen, a, 8)
+    cb = None if b is None else ic.encrypt(gen, b, 8)
+    ic.reset_stats()
+    reset_launch_counts()
+    out = ic.relu_clamp(ca) if b is None else getattr(ic, op)(ca, cb)
+    got = int(ic.ctx.decrypt(out)) if op == "compare" else ic.decrypt(out)
+    assert got == want
+    rounds = ic.stats["lut_batches"]
+    spec = ic.spec(8)
+    assert rounds == len(radix_round_plan(ir_op, spec.n_digits, spec.msg_bits))
+    n = ic.params.n
+    assert launch_counts() == {"keyswitch_mac": rounds, "fft_forward": rounds * n,
+                               "fft_inverse": rounds * n,
+                               "external_product_mac": rounds * n}
