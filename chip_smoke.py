@@ -13,7 +13,9 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    relative; the step's torus inverse within 1e-12 of the float
    inverse's scale plus one), timed with CUDA events beside its plain
    version, a PyTorch library call where one computes the same function,
-   and the card's bound;
+   and the card's bound: the larger of its bytes over the memory rate
+   and its operations over the peak rate of their type (f64 for the
+   FFTs and the MAC, int8 tensor-core operations for the keyswitch);
 3. the main path: two chained `lut_batch_tables` rounds on the fused
    backend through one resident pack, each decrypting to its plaintext
    table, the reference backend decrypt-identical on round 1, and the
@@ -36,9 +38,11 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    rounds x (1, n, n, n) times; each round's rows and wall time are
    printed;
 6. each kernel again at the largest round's shapes (288 rows), against
-   its plain version, timed one call at a time and back to back, and
-   that round under `torch.profiler` (`build/profile_round288.json`):
-   device time by kernel, busy and idle share, peak device memory.
+   its plain version, timed one call at a time and back to back (the MAC
+   beside `torch.einsum`), and that round under `torch.profiler`
+   (`build/profile_round288.json`): device time by kernel, busy and idle
+   share, peak device memory (keys, the resident pack with its KSK limb
+   operand, the round's working set).
 
 Prints the card, the build time, a line per phase, a `{"radix": ...}` and
 a `{"kernels": ...}` JSON line and, last, `{"ok": true, "device": {...}}`.  Any failure
@@ -68,13 +72,14 @@ SLEEP_CYCLES = 20_000_000   # about 10 ms of device time at the H100's clocks
 # to these on the CPU)
 QUICKSTART_ROUNDS, QUICKSTART_ROWS = 24, 753
 
-# Data-sheet peaks by card (NVIDIA H100 data sheet): memory bytes/s, FP64
-# FLOP/s (tensor cores).  Matched on the name nvidia-smi reports.
-PEAKS = {"H100 PCIe": (2.0e12, 51.2e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12)}
+# Data-sheet peaks by card (NVIDIA H100 data sheet, dense): memory bytes/s,
+# FP64 FLOP/s (tensor cores), int8 tensor-core OP/s.  Matched on the name
+# nvidia-smi reports.
+PEAKS = {"H100 PCIe": (2.0e12, 51.2e12, 1513e12), "H100 NVL": (3.9e12, 60e12, 1671e12),
+         "H100": (3.35e12, 67e12, 1979e12)}
 
 
-def card_peaks(name: str) -> tuple[float, float]:
+def card_peaks(name: str) -> tuple[float, float, float]:
     for key, peaks in PEAKS.items():
         if key in name:
             return peaks
@@ -306,46 +311,51 @@ def radix_phase(ctx, smi: str) -> dict:
     return {"results": results, "largest": largest}
 
 
-def kernels_at_rows(cts, pack, gen, mem_rate: float, fp64_rate: float,
-                    smi: str) -> dict:
+def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
     """Each kernel on the shapes a round of `cts.shape[0]` rows gives it,
     against its plain version, timed one call at a time and back to
-    back, beside its bound.  Returns {row name: measurements}."""
+    back, beside its bound and, for the MAC, `torch.einsum` on the same
+    inputs.  Returns {row name: measurements}."""
     import torch
     from repro_torch.core import decompose as dec, torus
     from repro_torch.kernels import external_product as ep, fourstep_fft as ff
     from repro_torch.kernels import keyswitch as ks
+    mem_rate, fp64_rate, int8_rate = peaks
     p = pack.params
     R, K, M = cts.shape[0], p.k + 1, p.N // 2
     J = K * p.pbs_level
     digits = dec.decompose(cts[:, :-1], p.ks_base_log, p.ks_level)
-    digits = digits.reshape(R, -1).to(torch.int32).contiguous()
+    digits = digits.reshape(R, -1).to(torch.int8).contiguous()
+    limbs = pack.ksk_limbs
+    S, T = digits.shape[1], limbs.shape[0] // 8
     acc = torus.random_torus(gen, (R, K, p.N), device=cts.device)
     shifts = torch.randint(0, 2 * p.N, (R,), generator=gen, device=cts.device)
     dig = ff.fft_forward_digits(acc, shifts, p.pbs_base_log, p.pbs_level)
     bsk_i = pack.bsk_planes[0]
     mac = ep.external_product_mac(dig, bsk_i)
+    d_c, w_c = torch.complex(dig[:, 0], dig[:, 1]), torch.complex(bsk_i[0], bsk_i[1])
     x_scale = ff.fft_inverse_plain(mac.transpose(1, 2).reshape(R * K, 2, M)).abs().max().item()
     fft_flops = 5 * M * (M.bit_length() - 1)
-    # (run, plain, tolerance, bytes moved, f64 operations); the keyswitch's
-    # 64-bit integer MACs have no data-sheet peak, so its bound is bytes
+    # (run, plain, library call, tolerance, bytes moved, operations, their
+    # peak rate): the keyswitch's operations are int8 tensor-core MACs x 2
     cases = {
-        "keyswitch_mac": (lambda: ks.keyswitch_mac(digits, pack.ksk),
-                          lambda: ks.keyswitch_mac_plain(digits, pack.ksk), "exact",
-                          nbytes(digits, pack.ksk) + R * pack.ksk.shape[1] * 8, 0),
+        "keyswitch_mac": (lambda: ks.keyswitch_mac(digits, limbs),
+                          lambda: ks.keyswitch_mac_plain(digits, limbs), None, "exact",
+                          nbytes(digits, limbs) + R * T * 8, 2 * R * S * 8 * T, int8_rate),
         "fft_forward_digits": (
             lambda: ff.fft_forward_digits(acc, shifts, p.pbs_base_log, p.pbs_level),
             lambda: ff.fft_forward_digits_plain(acc, shifts, p.pbs_base_log, p.pbs_level),
-            1e-12, nbytes(acc, shifts, dig), fft_flops * R * J),
+            None, 1e-12, nbytes(acc, shifts, dig), fft_flops * R * J, fp64_rate),
         "external_product_mac": (lambda: ep.external_product_mac(dig, bsk_i),
-                                 lambda: ep.external_product_mac_plain(dig, bsk_i), 1e-9,
-                                 nbytes(dig, bsk_i, mac), 8 * R * J * K * M),
+                                 lambda: ep.external_product_mac_plain(dig, bsk_i),
+                                 lambda: torch.einsum("bjf,jkf->bkf", d_c, w_c), 1e-9,
+                                 nbytes(dig, bsk_i, mac), 8 * R * J * K * M, fp64_rate),
         "fft_inverse_torus": (lambda: ff.fft_inverse_torus(mac, acc),
-                              lambda: ff.fft_inverse_torus_plain(mac, acc), "torus",
-                              nbytes(mac, acc, acc), fft_flops * R * K),
+                              lambda: ff.fft_inverse_torus_plain(mac, acc), None, "torus",
+                              nbytes(mac, acc, acc), fft_flops * R * K, fp64_rate),
     }
     out = {}
-    for name, (run, plain, tol, moved, flops) in cases.items():
+    for name, (run, plain, library, tol, moved, ops, rate) in cases.items():
         got, want = run(), plain()
         torch.cuda.synchronize()
         d = (got - want).abs().max().item()
@@ -357,13 +367,16 @@ def kernels_at_rows(cts, pack, gen, mem_rate: float, fp64_rate: float,
             ok = d <= tol * want.abs().max().item()
         del want
         ms, ms_b2b = cuda_ms(run, 5), b2b_ms(run, 10)
-        t_bytes, t_ops = moved / mem_rate * 1e3, flops / fp64_rate * 1e3
+        lib_ms = cuda_ms(library, 5) if library else None
+        t_bytes, t_ops = moved / mem_rate * 1e3, ops / rate * 1e3
         by = "bytes" if t_bytes >= t_ops else "operations"
         out[name] = {"rows": R, "ms": ms, "ms_b2b": ms_b2b, "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": by, "mb": moved / 1e6, "max_abs_err": d}
+                     "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
+                     "library_ms": lib_ms, "mb": moved / 1e6, "max_abs_err": d}
         print(f"phase {name} at {R} rows: max_abs_err {d:.3e} ({'ok' if ok else 'FAILED'}, "
-              f"limit {tol}), kernel_ms {ms:.4f}, back-to-back {ms_b2b:.4f}, bound_ms "
-              f"{max(t_bytes, t_ops):.4f} ({by}, {moved / 1e6:.2f} MB) on {smi}")
+              f"limit {tol}), kernel_ms {ms:.4f}, back-to-back {ms_b2b:.4f}, library_ms "
+              f"{lib_ms}, bound_ms {max(t_bytes, t_ops):.4f} ({by}; bytes {t_bytes:.4f} for "
+              f"{moved / 1e6:.2f} MB, operations {t_ops:.4f} for {ops:.3e}) on {smi}")
         if not ok:
             raise AssertionError(f"{name} at {R} rows disagrees with its plain version")
     return out
@@ -389,7 +402,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     card = torch.cuda.get_device_name(0)
-    mem_rate, fp64_rate = card_peaks(card)
+    peaks = card_peaks(card)
+    mem_rate = peaks[0]
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -413,7 +427,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s, ksk {nbytes(ctx.ksk) / 1e9:.3f} GB, "
           f"bsk_f {nbytes(ctx.bsk_f) / 1e9:.3f} GB")
     engine = TaurusEngine.from_context(ctx)               # fused, on the card
-    pack = engine.fused_pack
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pack = engine.fused_pack           # built at first use: each engine's first round
+    torch.cuda.synchronize()
+    print(f"resident pack built in {(time.perf_counter() - t0) * 1e3:.2f} ms: bsk planes "
+          f"{nbytes(pack.bsk_planes) / 1e9:.3f} GB, ksk limb operand "
+          f"{tuple(pack.ksk_limbs.shape)} {nbytes(pack.ksk_limbs) / 1e9:.3f} GB; device "
+          f"memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {smi}")
     msgs = (torch.arange(B, device="cuda") * 11 + 3) % p.plaintext_modulus
     cts = ctx.encrypt(gen, msgs)
     assert torch.equal(ctx.decrypt(cts), msgs), "fresh encryptions do not decrypt"
@@ -422,7 +444,7 @@ def main() -> int:
     kernels = []
 
     def phase(name, route_src, replaces, run, plain, library, err, tol,
-              moved, flops):
+              moved, ops, rate):
         got, want = run(), plain()
         torch.cuda.synchronize()
         e = err(got, want)
@@ -430,21 +452,22 @@ def main() -> int:
                "replaces": replaces, "launches": None, "max_abs_err": e["abs"],
                "ms": cuda_ms(run), "ms_b2b": b2b_ms(run), "plain_ms": cuda_ms(plain, 5),
                "library_ms": cuda_ms(library) if library else None}
-        t_bytes, t_ops = moved / mem_rate * 1e3, flops / fp64_rate * 1e3
+        t_bytes, t_ops = moved / mem_rate * 1e3, ops / rate * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["bytes_ms"], row["ops_ms"] = t_bytes, t_ops
         print(f"phase {name}: {e['text']} (limit {tol}), kernel_ms {row['ms']:.4f}, "
               f"back-to-back {row['ms_b2b']:.4f}, "
               f"plain_ms {row['plain_ms']:.4f}, library_ms {row['library_ms']}, "
-              f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
-              f"{moved / 1e6:.2f} MB) on {smi}")
+              f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}; bytes {t_bytes:.4f} "
+              f"for {moved / 1e6:.2f} MB, operations {t_ops:.4f} for {ops:.3e}) on {smi}")
         if not e["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version: {e['text']}")
         kernels.append(row)
         return got
 
     digits = dec.decompose(cts[:, :-1], p.ks_base_log, p.ks_level)
-    digits = digits.reshape(B, -1).to(torch.int32).contiguous()
+    digits = digits.reshape(B, -1).to(torch.int8).contiguous()
 
     def exact(got, want):
         diff = (got - want).abs().max().item()
@@ -459,12 +482,14 @@ def main() -> int:
                     "text": f"max_abs_err {d:.3e}, relative {d / scale:.3e}"}
         return check
 
-    acc = torch.empty((B, pack.ksk.shape[1]), dtype=torch.int64, device="cuda")
+    limbs = pack.ksk_limbs
+    S, T = digits.shape[1], limbs.shape[0] // 8
+    acc = torch.empty((B, T), dtype=torch.int64, device="cuda")
     phase("keyswitch_mac", "src/repro_torch/kernels/csrc/keyswitch.cu",
           "src/repro/kernels/keyswitch.py:91",
-          lambda: ks.keyswitch_mac(digits, pack.ksk),
-          lambda: ks.keyswitch_mac_plain(digits, pack.ksk), None,
-          exact, "bit-exact", nbytes(digits, pack.ksk, acc), 0)
+          lambda: ks.keyswitch_mac(digits, limbs),
+          lambda: ks.keyswitch_mac_plain(digits, limbs), None,
+          exact, "bit-exact", nbytes(digits, limbs, acc), 2 * B * S * 8 * T, peaks[2])
 
     J = (p.k + 1) * p.pbs_level
     K, M = p.k + 1, p.N // 2
@@ -478,7 +503,7 @@ def main() -> int:
     phase("fft_forward", fft_src, fwd_tpu,
           lambda: ff.fft_forward(x), lambda: ff.fft_forward_plain(x),
           lambda: torch.fft.fft(u, dim=-1), rel(1e-12), 1e-12,
-          2 * nbytes(x), fft_flops)
+          2 * nbytes(x), fft_flops, peaks[1])
 
     # A CMux step's prologue at the main path's shapes: an accumulator of
     # random torus values, shifts from the mod switch's range [0, 2N).
@@ -489,7 +514,7 @@ def main() -> int:
                 lambda: ff.fft_forward_digits_plain(acc_in, shifts, p.pbs_base_log,
                                                     p.pbs_level),
                 None, rel(1e-12), 1e-12,
-                nbytes(acc_in, shifts) + B * 2 * J * M * 8, fft_flops)
+                nbytes(acc_in, shifts) + B * 2 * J * M * 8, fft_flops, peaks[1])
 
     bsk_i = pack.bsk_planes[0]
     d_c, w_c = torch.complex(dig[:, 0], dig[:, 1]), torch.complex(bsk_i[0], bsk_i[1])
@@ -498,7 +523,7 @@ def main() -> int:
                 lambda: ep.external_product_mac(dig, bsk_i),
                 lambda: ep.external_product_mac_plain(dig, bsk_i),
                 lambda: torch.einsum("bjf,jkf->bkf", d_c, w_c), rel(1e-9), 1e-9,
-                nbytes(dig, bsk_i) + B * 2 * K * M * 8, 8 * B * J * K * M)
+                nbytes(dig, bsk_i) + B * 2 * K * M * 8, 8 * B * J * K * M, peaks[1])
 
     planes = out.transpose(1, 2).reshape(B * K, 2, M).contiguous()
     z = torch.complex(planes[:, 0], planes[:, 1])
@@ -506,7 +531,7 @@ def main() -> int:
     phase("fft_inverse", fft_src, inv_tpu,
           lambda: ff.fft_inverse(planes), lambda: ff.fft_inverse_plain(planes),
           lambda: torch.fft.ifft(z, dim=-1), rel(1e-12), 1e-12,
-          2 * nbytes(planes), inv_flops)
+          2 * nbytes(planes), inv_flops, peaks[1])
 
     # The torus output may differ by the f64 transform's rounding (1e-12 of
     # the float inverse's scale) and one unit of the final rounding.
@@ -522,7 +547,7 @@ def main() -> int:
           lambda: ff.fft_inverse_torus(out, acc_in),
           lambda: ff.fft_inverse_torus_plain(out, acc_in), None,
           torus_close, "1e-12 x scale + 1",
-          nbytes(out, acc_in) + nbytes(acc_in), inv_flops)
+          nbytes(out, acc_in) + nbytes(acc_in), inv_flops, peaks[1])
 
     # -- the main path: two chained fused rounds, reference on round 1 --------
     rng = torch.Generator().manual_seed(SEED)
@@ -576,7 +601,7 @@ def main() -> int:
     # -- the radix path: the quickstart program on 32-bit integers ----------
     radix = radix_phase(ctx, smi)
     largest = radix["largest"]
-    at_rows = kernels_at_rows(largest["cts"], pack, gen, mem_rate, fp64_rate, smi)
+    at_rows = kernels_at_rows(largest["cts"], pack, gen, peaks, smi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -603,7 +628,8 @@ def main() -> int:
         row["launches_radix"] = {b: r["launches"][key] for b, r in radix["results"].items()}
         m = at_rows.get(row["name"])
         if m is not None:
-            row.update({f"{k}_288": m[k] for k in ("ms", "ms_b2b", "bound_ms", "bound_by")})
+            row.update({f"{k}_288": m[k] for k in ("ms", "ms_b2b", "bound_ms", "bound_by",
+                                                   "library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

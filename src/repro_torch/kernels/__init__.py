@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel.
 
-  keyswitch         — the LPU key-switch MAC, native 64-bit wrapping MAC.
+  keyswitch         — the LPU key-switch MAC, mod 2^64, as an int8
+                      tensor-core GEMM over the KSK's byte limbs.
   fourstep_fft      — the four-step negacyclic FFT, f64, one launch per
                       transform on a thread-block cluster; its digit and
                       torus entry points carry a CMux step's glue.

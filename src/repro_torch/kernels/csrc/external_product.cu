@@ -10,16 +10,59 @@
 //     dig (B, 2, J, F)    bsk (2, J, K, F)    out (B, 2, K, F)
 // with J = (k+1) * pbs_level and F = N/2.
 //
-// Bound on the card: bytes.  At gpt2 and B = 12 (J = K = 2, F = 16,384)
-// the call moves 13.6 MB and does 6.3 MFLOP, so it sits far below the
-// FP64 ridge.  The design reads each BSK element once for the whole
-// batch: one thread per f holds that f's J x K complex BSK values in
-// registers and loops over b; every load and store is coalesced along f.
+// Bound on the card: bytes.  At gpt2 (J = K = 2, F = 16,384) a call moves
+// 13.6 MB at B = 12 and 303 MB at B = 288 against 8 B J K F flops, far
+// below the FP64 ridge, so the design is about bytes in flight:
+//  * a 2-D grid over (F tile, group of kRows rows): each thread holds its
+//    f's J x K complex BSK values in registers and walks the group's rows,
+//    so the 1.05 MB BSK slice is read once per row group (from L2 after
+//    the first); the F tiles of one row group are adjacent in launch order;
+//  * rows go two at a time: both rows' loads are issued before the first
+//    store;
+//  * the block shape (kThreads, kRows) is the best of
+//    `kernels/mac_sweep.py` on the card at 12 and 288 rows, which builds
+//    variants of this file with other values of the two constants.
+// The sum over j keeps its order, so results match the plain einsum to
+// rounding.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 128;   // threads per block, one f each
+constexpr int kRows = 2;        // rows per block
+
+template <int J>
+struct Row {
+  double xr[J], xi[J];
+  __device__ __forceinline__ void load(const double* dig, int b, int f, int F) {
+    const double* dr = dig + (static_cast<size_t>(b) * 2 + 0) * J * F + f;
+    const double* di = dig + (static_cast<size_t>(b) * 2 + 1) * J * F + f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      xr[j] = __ldg(dr + static_cast<size_t>(j) * F);
+      xi[j] = __ldg(di + static_cast<size_t>(j) * F);
+    }
+  }
+};
+
+template <int J, int K>
+__device__ __forceinline__ void mac_store(const Row<J>& x, const double (&wr)[J][K],
+                                          const double (&wi)[J][K], double* out,
+                                          int b, int f, int F) {
+  double* orr = out + (static_cast<size_t>(b) * 2 + 0) * K * F + f;
+  double* oi = out + (static_cast<size_t>(b) * 2 + 1) * K * F + f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double sr = 0.0, si = 0.0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      sr += x.xr[j] * wr[j][k] - x.xi[j] * wi[j][k];
+      si += x.xr[j] * wi[j][k] + x.xi[j] * wr[j][k];
+    }
+    orr[static_cast<size_t>(k) * F] = sr;
+    oi[static_cast<size_t>(k) * F] = si;
+  }
+}
 
 template <int J, int K>
 __global__ void __launch_bounds__(kThreads)
@@ -28,44 +71,37 @@ external_product_mac_kernel(const double* __restrict__ dig,
                             double* __restrict__ out, int B, int F) {
   const int f = blockIdx.x * kThreads + threadIdx.x;
   if (f >= F) return;
+  const int b0 = blockIdx.y * kRows;
+  const int b1 = min(B, b0 + kRows);
   double wr[J][K], wi[J][K];
 #pragma unroll
   for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      wr[j][k] = bsk[((size_t)(0 * J + j) * K + k) * F + f];
-      wi[j][k] = bsk[((size_t)(1 * J + j) * K + k) * F + f];
+      wr[j][k] = __ldg(bsk + (static_cast<size_t>(0 * J + j) * K + k) * F + f);
+      wi[j][k] = __ldg(bsk + (static_cast<size_t>(1 * J + j) * K + k) * F + f);
     }
-  for (int b = 0; b < B; ++b) {
-    const double* dr = dig + ((size_t)b * 2 + 0) * J * F + f;
-    const double* di = dig + ((size_t)b * 2 + 1) * J * F + f;
-    double xr[J], xi[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      xr[j] = dr[(size_t)j * F];
-      xi[j] = di[(size_t)j * F];
-    }
-    double* orr = out + ((size_t)b * 2 + 0) * K * F + f;
-    double* oi = out + ((size_t)b * 2 + 1) * K * F + f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      double ar = 0.0, ai = 0.0;
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        ar += xr[j] * wr[j][k] - xi[j] * wi[j][k];
-        ai += xr[j] * wi[j][k] + xi[j] * wr[j][k];
-      }
-      orr[(size_t)k * F] = ar;
-      oi[(size_t)k * F] = ai;
-    }
+  int b = b0;
+  for (; b + 1 < b1; b += 2) {
+    Row<J> x0, x1;
+    x0.load(dig, b, f, F);
+    x1.load(dig, b + 1, f, F);
+    mac_store<J, K>(x0, wr, wi, out, b, f, F);
+    mac_store<J, K>(x1, wr, wi, out, b + 1, f, F);
+  }
+  if (b < b1) {
+    Row<J> x0;
+    x0.load(dig, b, f, F);
+    mac_store<J, K>(x0, wr, wi, out, b, f, F);
   }
 }
 
 template <int J, int K>
-void launch(const double* d, const double* w, double* o, int B, int F,
-            cudaStream_t st) {
-  external_product_mac_kernel<J, K>
-      <<<(F + kThreads - 1) / kThreads, kThreads, 0, st>>>(d, w, o, B, F);
+int launch(const double* d, const double* w, double* o, int B, int F,
+           cudaStream_t st) {
+  const dim3 grid((F + kThreads - 1) / kThreads, (B + kRows - 1) / kRows);
+  external_product_mac_kernel<J, K><<<grid, kThreads, 0, st>>>(d, w, o, B, F);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -81,17 +117,18 @@ int external_product_mac_launch(const void* dig, const void* bsk, void* out,
   auto w = static_cast<const double*>(bsk);
   auto o = static_cast<double*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
 #define EP_CASE(JJ, KK) \
-  if (J == JJ && K == KK) { launch<JJ, KK>(d, w, o, B, F, st); return (int)cudaGetLastError(); }
+  if (J == JJ && K == KK) return launch<JJ, KK>(d, w, o, B, F, st);
   EP_CASE(1, 1) EP_CASE(2, 1) EP_CASE(3, 1)
   EP_CASE(2, 2) EP_CASE(4, 2) EP_CASE(6, 2)
   EP_CASE(3, 3) EP_CASE(6, 3) EP_CASE(9, 3)
 #undef EP_CASE
-  return (int)cudaErrorInvalidValue;
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -7,14 +7,17 @@ out (B, 2, K, F), J = (k+1) * pbs_level.
 
 Replaces the Pallas TPU kernel
 `repro/kernels/external_product.py::external_product_mac` with the CUDA
-kernel in `csrc/external_product.cu`: one thread per f holds that f's
-J x K complex BSK values in registers and loops over the batch, so each
-BSK element is read once for the whole batch (the paper's key reuse).
+kernel in `csrc/external_product.cu`.  Bound on the card: bytes (13.6 MB
+per call at gpt2, B = 12; 303 MB at 288 rows; 8 B J K F flops).  So the
+design keeps bytes in flight: a grid over (F tile, group of 2 rows),
+each thread one f with its J x K complex BSK values in registers and
+both rows' loads issued before the first store; the BSK slice is read
+once per row group, from L2 after the first (the paper's key reuse).
+The block shape is the best of `kernels/mac_sweep.py` on the card, which
+builds variants of the kernel's source with other shapes.
 
-Bound on the card: bytes (13.6 MB per call at gpt2, B = 12, against
-6.3 MFLOP).  `external_product_mac` launches the kernel for CUDA tensors
-and runs `external_product_mac_plain` (a complex einsum) only for CPU
-tensors.
+`external_product_mac` launches the kernel for CUDA tensors and runs
+`external_product_mac_plain` (a complex einsum) only for CPU tensors.
 """
 from __future__ import annotations
 

@@ -4,8 +4,10 @@ This is what `TaurusEngine(kernel_backend="fused")` runs: the batched
 KS-first PBS (paper Fig. 3, steps A-D) with the paper's key reuse made
 explicit as RESIDENT operands.
 
-    keyswitch     `kernels.keyswitch` — 64-bit MAC over the gadget digits
-                  of the whole batch, bit-identical to `core.lwe.keyswitch`.
+    keyswitch     `kernels.keyswitch` — the 64-bit MAC over the int8 gadget
+                  digits of the whole batch as one int8 tensor-core GEMM
+                  against the KSK's byte limbs, bit-identical to
+                  `core.lwe.keyswitch`.
     blind rotate  per step, three launches: the forward FFT kernel takes
                   the rotate, subtract and decompose of the CMux
                   difference; one MAC kernel against the resident BSK
@@ -14,11 +16,13 @@ explicit as RESIDENT operands.
     extract       `core.glwe.sample_extract`.
 
 `FusedPbsPack` is the residency contract: the Fourier BSK is laid out in
-the MAC kernel's re/im plane layout ONCE per key, and every later round
-reads the same device tensors.  The KSK operand is the int64 key itself.
-The pack is f64 only (an f32 transform voids decryption on the 64-bit
-torus), and the TPU's tiling knobs (`block_f`, `block_s`, `interpret`)
-have no counterpart here.
+the MAC kernel's re/im plane layout ONCE per key, and the KSK in the
+keyswitch kernel's limb operand (`keyswitch.ksk_limbs`: its bytes,
+K-major, (8T, S16) uint8, as much memory again as the int64 key, which
+the reference engine keeps), and every later round reads the same
+device tensors.  The pack is f64 only (an f32 transform voids
+decryption on the 64-bit torus), and the TPU's tiling knobs (`block_f`,
+`block_s`, `interpret`) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -40,14 +44,17 @@ def bsk_to_planes(bsk_f: torch.Tensor) -> torch.Tensor:
     return torch.stack([flat.real, flat.imag], dim=1).contiguous()
 
 
-def keyswitch_fused(big_cts: torch.Tensor, ksk: torch.Tensor,
+def keyswitch_fused(big_cts: torch.Tensor, ksk_limbs: torch.Tensor,
                     params: TFHEParams) -> torch.Tensor:
-    """(B, big_n+1) -> (B, n+1) through the MAC kernel; `ksk` is the
-    (S, n+1) int64 key with S = big_n * ks_level.  Bit-identical to
-    `lwe.keyswitch`."""
+    """(B, big_n+1) -> (B, n+1) through the MAC kernel; `ksk_limbs` is
+    the (S, n+1) int64 key with S = big_n * ks_level as the limb operand
+    of `keyswitch.ksk_limbs`.  Bit-identical to `lwe.keyswitch`."""
+    if params.ks_base_log > 8:
+        raise ValueError(f"keyswitch_fused: ks_base_log {params.ks_base_log} > 8, "
+                         "the digits do not fit int8")
     digits = dec.decompose(big_cts[:, :-1], params.ks_base_log, params.ks_level)
-    digits = digits.reshape(big_cts.shape[0], -1).to(torch.int32)
-    out = -keyswitch.keyswitch_mac(digits, ksk)
+    digits = digits.reshape(big_cts.shape[0], -1).to(torch.int8)
+    out = -keyswitch.keyswitch_mac(digits, ksk_limbs)
     out[:, -1] += big_cts[:, -1]
     return out
 
@@ -95,11 +102,11 @@ def pbs_small_fused(small_cts: torch.Tensor, lut_polys: torch.Tensor,
 
 
 def pbs_batch_fused(big_cts: torch.Tensor, lut_polys: torch.Tensor,
-                    bsk_planes: torch.Tensor, ksk: torch.Tensor,
+                    bsk_planes: torch.Tensor, ksk_limbs: torch.Tensor,
                     params: TFHEParams) -> torch.Tensor:
     """(B, k*N+1) + (B, N) LUT polys -> (B, k*N+1), all four PBS stages
     on the kernels with resident key operands."""
-    return pbs_small_fused(keyswitch_fused(big_cts, ksk, params), lut_polys,
+    return pbs_small_fused(keyswitch_fused(big_cts, ksk_limbs, params), lut_polys,
                            bsk_planes, params)
 
 
@@ -109,21 +116,22 @@ class FusedPbsPack:
     per engine and read by every later round."""
     params: TFHEParams
     bsk_planes: torch.Tensor         # (n, 2, J, K, M) f64 planes
-    ksk: torch.Tensor                # (S, T) int64, S = big_n * ks_level
+    ksk_limbs: torch.Tensor          # (8T, S16) uint8, S = big_n * ks_level
 
     @classmethod
     def build(cls, bsk_f: torch.Tensor, ksk: torch.Tensor,
               params: TFHEParams) -> "FusedPbsPack":
         n_from, level, t = ksk.shape
-        return cls(params, bsk_to_planes(bsk_f), ksk.reshape(n_from * level, t))
+        return cls(params, bsk_to_planes(bsk_f),
+                   keyswitch.ksk_limbs(ksk.reshape(n_from * level, t)))
 
     # -- the engine entry points -------------------------------------------
     def pbs_batch(self, big_cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
-        return pbs_batch_fused(big_cts, lut_polys, self.bsk_planes, self.ksk,
+        return pbs_batch_fused(big_cts, lut_polys, self.bsk_planes, self.ksk_limbs,
                                self.params)
 
     def keyswitch(self, big_cts: torch.Tensor) -> torch.Tensor:
-        return keyswitch_fused(big_cts, self.ksk, self.params)
+        return keyswitch_fused(big_cts, self.ksk_limbs, self.params)
 
     def blind_rotate(self, lut_glwes: torch.Tensor, ms_cts: torch.Tensor) -> torch.Tensor:
         return blind_rotate_fused(lut_glwes, ms_cts, self.bsk_planes, self.params)
@@ -137,9 +145,10 @@ class FusedPbsPack:
     @property
     def resident_key_bytes(self) -> tuple[int, int]:
         """(bsk_bytes, ksk_bytes) of the resident operands — what one
-        fused round streams from device memory once, regardless of B."""
+        fused round streams from device memory once, regardless of B
+        (the KSK as its limb operand)."""
         return (self.bsk_planes.numel() * self.bsk_planes.element_size(),
-                self.ksk.numel() * self.ksk.element_size())
+                self.ksk_limbs.numel() * self.ksk_limbs.element_size())
 
     def bytes_streamed_per_round(self, batch: int) -> int:
         """Key-reuse traffic model of ONE fused round: the resident keys

@@ -1,53 +1,111 @@
 """Key-switch MAC: `acc[b, t] = sum_s d[b, s] * K[s, t] mod 2^64`.
 
 Replaces the Pallas TPU kernel `repro/kernels/keyswitch.py::keyswitch_mac`
-with the CUDA kernel in `csrc/keyswitch.cu`.  Hopper multiplies 64-bit
-integers natively, so the TPU's uint32-limb synthesis is gone: the
-kernel takes int32 digits and the int64 KSK itself and accumulates in
-wrapping uint64, with S split across blocks and the partial sums
-combined by atomic adds (exact, since wrapping addition ignores order).
+with the CUDA kernel in `csrc/keyswitch.cu`, on Hopper's int8 tensor
+cores.  Each KSK word is eight little-endian bytes u_l, so
 
-Bound on the card: bytes — the KSK (1.58 GB at the gpt2 parameters) is
-read once per round; the design keeps each block's digit rows on chip so
-no KSK element is read twice.
+    acc[b, t] = sum_l 2^(8l) P_l[b, t]  (mod 2^64),
+    P_l[b, t] = sum_s d[b, s] u_l[s, t],
+
+and every P_l is an exact s8 x u8 -> s32 product over a stretch of at
+most `STRETCH` rows of S (65,536 x 128 x 255 < 2^31), the tensor-core
+form of the TPU kernel's 16-bit sub-limbs.  The key is stored once as
+the K-major limb operand (`ksk_limbs`, (8T, S16) uint8, row 8t + l holds
+byte l of column t), so the keyswitch is one int8 GEMM whose epilogue
+folds each t's 8 limb rows into one wrapping uint64.
+
+Bound on the card: the larger of the limb operand's bytes (1.58 GB at
+the gpt2 parameters, read once per round) and 2 B S 8T int8 operations
+at the tensor cores' peak; the kernel reads each limb byte once for all
+rows of a round, with S split across blocks and the partial sums
+combined by wrapping atomic adds (exact, since wrapping addition ignores
+order).
 
 `keyswitch_mac` launches the kernel for CUDA tensors and runs
-`keyswitch_mac_plain` (a chunked int64 multiply-sum) only for CPU
-tensors.
+`keyswitch_mac_plain`, which repeats the kernel's arithmetic (per-limb
+products over stretches of S, then the shift-and-wrap fold), only for
+CPU tensors.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core import lwe
 from repro_torch.kernels import _build
 
+TILE_S = 16          # the limb operand's S is padded to a multiple of this
+STRETCH = 65536      # rows of S whose int32 limb products stay exact
+_PLAIN_CHUNK = 8192  # rows of S per float64 product in the plain version
+_LIMB_SCALE = [1 << (8 * l) for l in range(8)]
 
-def keyswitch_mac_plain(digits: torch.Tensor, ksk: torch.Tensor) -> torch.Tensor:
-    """digits (B, S) int32, ksk (S, T) int64 -> (B, T) int64 mod 2^64."""
-    return lwe.wrapping_matmul(digits.to(torch.int64), ksk)
+
+def ksk_limbs(ksk: torch.Tensor) -> torch.Tensor:
+    """(S, T) int64 key -> (8T, S16) uint8 limb operand, K-major: row
+    8t + l holds little-endian byte l of column t, and S is zero-padded to
+    S16, a multiple of `TILE_S`."""
+    S, T = ksk.shape
+    # a transpose of whole words, then of the bytes within each word: on the
+    # card, faster than transposing the (S, 8T) byte matrix in one copy
+    words = ksk.t().contiguous().view(torch.uint8).reshape(T, S, 8)
+    limbs = words.transpose(1, 2).contiguous().reshape(8 * T, S)
+    pad = (-S) % TILE_S
+    return F.pad(limbs, (0, pad)) if pad else limbs
 
 
-def keyswitch_mac(digits: torch.Tensor, ksk: torch.Tensor) -> torch.Tensor:
-    """digits (B, S) int32, ksk (S, T) int64 -> (B, T) int64 mod 2^64."""
-    if digits.device.type == "cpu":
-        return keyswitch_mac_plain(digits, ksk)
+def _require_operands(digits: torch.Tensor, limbs: torch.Tensor) -> None:
+    """The operands' contract, on every device: int8 digits (the limb
+    sums are exact only for them) and a limb operand of their S."""
     name = "keyswitch_mac"
-    _build.require(name, digits.device.type == "cuda" and ksk.device == digits.device,
-                   f"needs CUDA tensors on one device, got {digits.device} "
-                   f"and {ksk.device}")
-    _build.require(name, digits.dtype == torch.int32 and ksk.dtype == torch.int64,
-                   f"needs int32 digits and an int64 key, got {digits.dtype} "
-                   f"and {ksk.dtype}")
-    _build.require(name, digits.dim() == 2 and ksk.dim() == 2
-                   and digits.shape[1] == ksk.shape[0],
-                   f"shapes {tuple(digits.shape)} x {tuple(ksk.shape)}")
-    _build.require(name, digits.is_contiguous() and ksk.is_contiguous(),
-                   "needs contiguous tensors")
+    _build.require(name, digits.dtype == torch.int8 and limbs.dtype == torch.uint8,
+                   f"needs int8 digits and a uint8 limb operand, got {digits.dtype} "
+                   f"and {limbs.dtype}")
+    _build.require(name, digits.dim() == 2 and limbs.dim() == 2 and limbs.shape[0] % 8 == 0
+                   and limbs.shape[1] == digits.shape[1] + (-digits.shape[1]) % TILE_S,
+                   f"shapes {tuple(digits.shape)} x {tuple(limbs.shape)}: the limb "
+                   f"operand must be (8T, S rounded up to {TILE_S})")
+
+
+def keyswitch_mac_plain(digits: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
+    """digits (B, S) int8, limbs (8T, S16) uint8 -> (B, T) int64 mod 2^64.
+
+    Per stretch of S, the 8T limb products in float64 (exact: every
+    partial sum is an integer below 2^31), cast to int32, then each t's
+    8 limbs shifted by 8l and summed with wrapping int64 arithmetic."""
+    _require_operands(digits, limbs)
     B, S = digits.shape
-    T = ksk.shape[1]
+    T = limbs.shape[0] // 8
+    scale = torch.tensor(_LIMB_SCALE, dtype=torch.int64, device=digits.device)
+    out = torch.zeros((B, T), dtype=torch.int64, device=digits.device)
+    for s0 in range(0, S, STRETCH):
+        s1 = min(S, s0 + STRETCH)
+        prod = torch.zeros((B, 8 * T), dtype=torch.float64, device=digits.device)
+        for c0 in range(s0, s1, _PLAIN_CHUNK):
+            c1 = min(s1, c0 + _PLAIN_CHUNK)
+            prod += digits[:, c0:c1].to(torch.float64) @ limbs[:, c0:c1].to(torch.float64).t()
+        limb_sums = prod.to(torch.int32).to(torch.int64).reshape(B, T, 8)
+        out += (limb_sums * scale).sum(dim=-1)
+    return out
+
+
+def keyswitch_mac(digits: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
+    """digits (B, S) int8, limbs (8T, S16) uint8 from `ksk_limbs` ->
+    (B, T) int64 mod 2^64."""
+    if digits.device.type == "cpu":
+        return keyswitch_mac_plain(digits, limbs)
+    name = "keyswitch_mac"
+    _build.require(name, digits.device.type == "cuda" and limbs.device == digits.device,
+                   f"needs CUDA tensors on one device, got {digits.device} "
+                   f"and {limbs.device}")
+    _require_operands(digits, limbs)
+    _build.require(name, digits.is_contiguous() and limbs.is_contiguous()
+                   and digits.data_ptr() % 16 == 0 and limbs.data_ptr() % 16 == 0,
+                   "needs contiguous, 16-byte aligned tensors")
+    B, S = digits.shape
+    S16, T = limbs.shape[1], limbs.shape[0] // 8
+    if S16 != S:           # TMA rows must be a multiple of 16 bytes
+        digits = F.pad(digits, (0, S16 - S))
     out = torch.zeros((B, T), dtype=torch.int64, device=digits.device)
     fn = _build.function("keyswitch", "keyswitch_mac_launch", 3, 3)
-    _build.launch(name, fn, digits.data_ptr(), ksk.data_ptr(), out.data_ptr(),
-                  B, S, T, device=digits.device)
+    _build.launch(name, fn, digits.data_ptr(), limbs.data_ptr(), out.data_ptr(),
+                  B, S16, T, device=digits.device)
     return out

@@ -6,10 +6,11 @@ there without the conftest:
 
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerances are the contract's: the keyswitch MAC bit-exact, the FFTs
-within 1e-12 of the output scale, the MAC within 1e-9 relative, and the
-torus output of `fft_inverse_torus` within 1e-12 of the float inverse's
-scale plus one (the f64 transform's rounding, then one torus unit);
+Tolerances are the contract's: the keyswitch MAC bit-exact (int8
+digits against the key's limb operand), the FFTs within 1e-12 of the
+output scale, the MAC within 1e-9 relative, and the torus output of
+`fft_inverse_torus` within 1e-12 of the float inverse's scale plus one
+(the f64 transform's rounding, then one torus unit);
 PBS rounds and radix integer ops decrypt exactly to their oracles.
 """
 import pytest
@@ -37,16 +38,39 @@ def close(got, want, rel):
     return (got - want).abs().max().item() <= rel * want.abs().max().item()
 
 
-@pytest.mark.parametrize("B,S,T", [(1, 64, 33), (12, 5000, 1004), (17, 1023, 129),
-                                   (40, 300, 7)])
+ROWS = [1, 12, 13, 33, 288]
+
+
+@pytest.mark.parametrize("S,T", [(64, 33), (5000, 1004), (1023, 129), (70000, 7)])
+@pytest.mark.parametrize("B", ROWS + [20, 100, 300])
 def test_keyswitch_mac_bit_exact(gen, B, S, T):
-    d = torch.randint(-(1 << 31), (1 << 31) - 1, (B, S), generator=gen, device="cuda",
-                      dtype=torch.int64).to(torch.int32)
+    """Random int8 digits and int64 key words at the contract's row counts
+    and in every row tier of the kernel (16, 32, 64, 144, 288, and two
+    row groups at 300), with S and T off the kernel's tiles (S = 70,000
+    spans two int32 stretches)."""
+    d = torch.randint(-128, 128, (B, S), generator=gen, device="cuda").to(torch.int8)
     k = torch.randint(-(1 << 62), 1 << 62, (S, T), generator=gen, device="cuda") * 3
+    limbs = keyswitch.ksk_limbs(k)
     reset_launch_counts()
-    got = keyswitch.keyswitch_mac(d, k)
+    got = keyswitch.keyswitch_mac(d, limbs)
     assert launch_counts()["keyswitch_mac"] == 1
-    assert torch.equal(got, keyswitch.keyswitch_mac_plain(d, k))
+    assert torch.equal(got, keyswitch.keyswitch_mac_plain(d, limbs))
+
+
+@pytest.mark.parametrize("digit", [-128, 127])
+def test_keyswitch_mac_extremes(gen, digit):
+    """The largest limb sums there are over S = 2 stretches + 48: extreme
+    digits against all-ones and high-bit key words."""
+    S, T = 2 * keyswitch.STRETCH + 48, 5
+    d = torch.full((13, S), digit, dtype=torch.int8, device="cuda")
+    d[1::2, ::5] = 0
+    k = torch.full((S, T), -1, dtype=torch.int64, device="cuda")
+    k[:, 1] = -(1 << 63)
+    k[::3, 2] = 0x7F00FF00FF00FF00
+    limbs = keyswitch.ksk_limbs(k)
+    got = keyswitch.keyswitch_mac(d, limbs)
+    assert torch.equal(got, keyswitch.keyswitch_mac_plain(d, limbs))
+    assert torch.equal(got[0], (d[0].to(torch.int64)[:, None] * k).sum(0))
 
 
 @pytest.mark.parametrize("N", [8, 512, 2048, 32768, 65536])
@@ -114,11 +138,14 @@ def test_fft_inverse_torus_rounds_exactly(gen, v):
     assert torch.equal(fourstep_fft.fft_inverse_torus(planes, None)[0, 0], want)
 
 
+@pytest.mark.parametrize("F", [1000, 999])
+@pytest.mark.parametrize("B", ROWS)
 @pytest.mark.parametrize("J,K", [(1, 1), (2, 1), (3, 1), (2, 2), (4, 2), (6, 2),
                                  (3, 3), (6, 3), (9, 3)])
-def test_external_product_mac(gen, J, K):
-    F = 1000
-    dig = torch.randn((12, 2, J, F), generator=gen, device="cuda", dtype=torch.float64)
+def test_external_product_mac(gen, J, K, B, F):
+    """Every (J, K) case the kernel builds, at every row count of the
+    contract, with an even and an odd F."""
+    dig = torch.randn((B, 2, J, F), generator=gen, device="cuda", dtype=torch.float64)
     bsk = torch.randn((2, J, K, F), generator=gen, device="cuda", dtype=torch.float64)
     got = external_product.external_product_mac(dig, bsk)
     assert close(got, external_product.external_product_mac_plain(dig, bsk), 1e-9)

@@ -20,6 +20,7 @@ from repro.kernels import external_product as jep, fourstep_fft as jff  # noqa: 
 from repro.kernels import fused_pbs as jfused, ops, ref  # noqa: E402
 from repro_torch.interop import context_from_numpy, tensor_to_u64, u64_to_tensor  # noqa: E402
 from repro_torch.kernels import external_product, fourstep_fft, fused_pbs, keyswitch  # noqa: E402
+from repro_torch.kernels import mac_sweep  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 
 
@@ -39,14 +40,15 @@ def tctx_2bit(ctx_2bit):
 
 
 def jax_keyswitch(digits, ksk_u64, block_s):
-    return np.asarray(ops.lpu_keyswitch_mac(jnp.asarray(digits), jnp.asarray(ksk_u64),
-                                            block_s=block_s))
+    return np.asarray(ops.lpu_keyswitch_mac(jnp.asarray(digits, dtype=jnp.int32),
+                                            jnp.asarray(ksk_u64), block_s=block_s))
 
 
 def port_keyswitch(digits, ksk_u64):
-    got = keyswitch.keyswitch_mac(torch.as_tensor(digits),
-                                  u64_to_tensor(ksk_u64, "cpu"))
-    return tensor_to_u64(got)
+    """The port's MAC on int8 digits against the limb operand of the key."""
+    limbs = keyswitch.ksk_limbs(u64_to_tensor(ksk_u64, "cpu"))
+    return tensor_to_u64(keyswitch.keyswitch_mac(torch.as_tensor(digits, dtype=torch.int8),
+                                                 limbs))
 
 
 # --- keyswitch MAC ------------------------------------------------------------
@@ -55,26 +57,65 @@ def port_keyswitch(digits, ksk_u64):
                                            (3, 2048, 129, 512)])
 def test_keyswitch_mac_exact(B, S, T, block_s):
     rng = np.random.default_rng(S + T)
-    digits = rng.integers(-(1 << 15), 1 << 15, (B, S)).astype(np.int32)
+    digits = rng.integers(-128, 128, (B, S)).astype(np.int8)
     ksk = rng.integers(0, 2 ** 64, (S, T), dtype=np.uint64)
     got = port_keyswitch(digits, ksk)
     assert np.array_equal(got, jax_keyswitch(digits, ksk, block_s))
-    assert np.array_equal(got, np.asarray(ref.keyswitch_mac_ref(jnp.asarray(digits),
-                                                                jnp.asarray(ksk))))
+    assert np.array_equal(got, np.asarray(ref.keyswitch_mac_ref(
+        jnp.asarray(digits, dtype=jnp.int32), jnp.asarray(ksk))))
 
 
-def test_keyswitch_mac_extreme_digits():
-    digits = np.array([[-(1 << 31), (1 << 31) - 1, -1, 1, 0, 7, -7, 12345]], dtype=np.int32)
-    ksk = np.random.default_rng(0).integers(0, 2 ** 64, (8, 33), dtype=np.uint64)
-    assert np.array_equal(port_keyswitch(digits, ksk), jax_keyswitch(digits, ksk, 8))
+@pytest.mark.parametrize("base_log", [3, 6, 8])
+def test_keyswitch_mac_extreme_digits(base_log):
+    """The extreme digits -2^(b-1) and 2^(b-1) - 1 against all-ones,
+    high-bit-only and random KSK words."""
+    lo, hi = -(1 << (base_log - 1)), (1 << (base_log - 1)) - 1
+    digits = np.array([[lo, hi, -1, 1, 0, lo, hi, lo], [hi] * 8, [lo] * 8], dtype=np.int8)
+    words = np.random.default_rng(base_log).integers(0, 2 ** 64, (8, 33), dtype=np.uint64)
+    words[:, 0] = np.uint64(2 ** 64 - 1)
+    words[:, 1] = np.uint64(1 << 63)
+    words[::2, 2] = np.uint64(0x8080808080808080)
+    assert np.array_equal(port_keyswitch(digits, words), jax_keyswitch(digits, words, 8))
 
 
 @pytest.mark.parametrize("S,block_s", [(100, 64), (33, 32), (2560, 1024)])
 def test_keyswitch_mac_unaligned_s(S, block_s):
     rng = np.random.default_rng(S)
-    digits = rng.integers(-(1 << 12), 1 << 12, (2, S)).astype(np.int32)
+    digits = rng.integers(-128, 128, (2, S)).astype(np.int8)
     ksk = rng.integers(0, 2 ** 64, (S, 65), dtype=np.uint64)
     assert np.array_equal(port_keyswitch(digits, ksk), jax_keyswitch(digits, ksk, block_s))
+
+
+@pytest.mark.parametrize("digit", [-128, 127])
+def test_keyswitch_mac_across_stretches(digit):
+    """S beyond one exact int32 stretch (65,536 rows) with the largest
+    limb sums there are: every digit extreme, every KSK word all ones
+    or high-bit only.  One stretch's limb sum reaches -128 x 255 x 65,536,
+    just inside int32; the fold must carry it into the uint64 result."""
+    S, T = keyswitch.STRETCH + 1000, 3
+    digits = np.full((2, S), digit, dtype=np.int8)
+    digits[1, ::3] = 0
+    ksk = np.full((S, T), 2 ** 64 - 1, dtype=np.uint64)
+    ksk[:, 1] = np.uint64(1 << 63)
+    ksk[::7, 2] = np.uint64(0xFF00FF00FF00FF00)
+    want = np.asarray(ref.keyswitch_mac_ref(jnp.asarray(digits, dtype=jnp.int32),
+                                            jnp.asarray(ksk)))
+    assert np.array_equal(port_keyswitch(digits, ksk), want)
+
+
+@pytest.mark.parametrize("S,T", [(2560, 65), (100, 7), (33, 1)])
+def test_ksk_limbs_layout(S, T):
+    """Row 8t + l of the limb operand is little-endian byte l of KSK column
+    t; S is zero-padded to a multiple of 16."""
+    ksk = np.random.default_rng(S * T).integers(0, 2 ** 64, (S, T), dtype=np.uint64)
+    limbs = keyswitch.ksk_limbs(u64_to_tensor(ksk, "cpu"))
+    S16 = -(-S // keyswitch.TILE_S) * keyswitch.TILE_S
+    assert limbs.dtype == torch.uint8 and limbs.is_contiguous()
+    assert limbs.shape == (8 * T, S16)
+    got = limbs.numpy()
+    for l in range(8):
+        assert np.array_equal(got[l::8, :S], ((ksk >> np.uint64(8 * l)) & np.uint64(255)).T)
+    assert not got[:, S:].any()
 
 
 # --- four-step FFT ------------------------------------------------------------
@@ -129,12 +170,39 @@ def test_external_product_mac_f64(B, J, K, F):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("digits,limbs", [
+    (torch.full((2, 16), 200, dtype=torch.int32), torch.zeros((40, 16), dtype=torch.uint8)),
+    (torch.zeros((2, 16), dtype=torch.int8), torch.zeros((5, 16), dtype=torch.int64)),
+    (torch.zeros((2, 17), dtype=torch.int8), torch.zeros((40, 17), dtype=torch.uint8)),
+], ids=["int32_digits", "int64_key", "unpadded_S"])
+def test_keyswitch_mac_refuses_other_operands_on_cpu(digits, limbs):
+    """The operand contract holds on the CPU as on the card: the plain
+    version's limb sums are exact only for int8 digits and the limb
+    operand of `ksk_limbs`."""
+    with pytest.raises(ValueError, match="keyswitch_mac"):
+        keyswitch.keyswitch_mac(digits, limbs)
+    with pytest.raises(ValueError, match="keyswitch_mac"):
+        keyswitch.keyswitch_mac_plain(digits, limbs)
+
+
+@pytest.mark.parametrize("threads,rows", mac_sweep.VARIANTS)
+def test_mac_sweep_variants_rewrite_the_kernel_source(threads, rows):
+    """Each block shape the sweep builds on the card rewrites exactly the
+    shipped kernel's two constants and keeps only the gpt2 (J, K) case."""
+    src = mac_sweep.SRC.read_text()
+    text = mac_sweep.variant_source(src, threads, rows)
+    assert f"constexpr int kThreads = {threads};" in text
+    assert f"constexpr int kRows = {rows};" in text
+    assert "EP_CASE(2, 2)" in text and "EP_CASE(9, 3)" not in text
+    assert text.count("\n") < src.count("\n")
+
+
 # --- wrappers raise on devices they have no kernel for -------------------------
 
 def test_wrappers_refuse_non_cuda_non_cpu_tensors():
     meta = lambda *s, dt=torch.float64: torch.empty(*s, dtype=dt, device="meta")
     with pytest.raises(ValueError, match="keyswitch_mac"):
-        keyswitch.keyswitch_mac(meta(2, 8, dt=torch.int32), meta(8, 5, dt=torch.int64))
+        keyswitch.keyswitch_mac(meta(2, 16, dt=torch.int8), meta(40, 16, dt=torch.uint8))
     with pytest.raises(ValueError, match="fft_forward"):
         fourstep_fft.fft_forward(meta(2, 64))
     with pytest.raises(ValueError, match="fft_inverse"):
@@ -153,14 +221,25 @@ def test_bsk_to_planes_matches(ctx_2bit, tctx_2bit):
 
 
 def test_keyswitch_fused_bit_identical(ctx_2bit, tctx_2bit, pallas_engine_2bit):
+    """The keyswitch through the port's pack (int8 digits, limb operand)
+    against the JAX package's pack, bit for bit."""
     p = ctx_2bit.params
     key = jax.random.PRNGKey(3)
     cts = jnp.stack([ctx_2bit.encrypt(jax.random.fold_in(key, i), i % 4) for i in range(5)])
     want = np.asarray(pallas_engine_2bit.fused_pack.keyswitch(cts))
-    n_from, level, t = tctx_2bit.ksk.shape
-    got = fused_pbs.keyswitch_fused(u64_to_tensor(np.asarray(cts), "cpu"),
-                                    tctx_2bit.ksk.reshape(n_from * level, t), p)
-    assert np.array_equal(tensor_to_u64(got), want)
+    pack = fused_pbs.FusedPbsPack.build(tctx_2bit.bsk_f, tctx_2bit.ksk, p)
+    tcts = u64_to_tensor(np.asarray(cts), "cpu")
+    assert np.array_equal(tensor_to_u64(pack.keyswitch(tcts)), want)
+    assert np.array_equal(tensor_to_u64(fused_pbs.keyswitch_fused(tcts, pack.ksk_limbs, p)),
+                          want)
+
+
+def test_keyswitch_fused_refuses_digits_wider_than_int8(tctx_2bit):
+    p = dataclasses.replace(tctx_2bit.params, ks_base_log=9, ks_level=3)
+    cts = torch.zeros((2, p.big_n + 1), dtype=torch.int64)
+    limbs = torch.zeros((8 * (p.n + 1), p.big_n * 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="ks_base_log 9 > 8"):
+        fused_pbs.keyswitch_fused(cts, limbs, p)
 
 
 def test_external_product_planes_matches(ctx_2bit, tctx_2bit):
