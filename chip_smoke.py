@@ -16,6 +16,11 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    and the card's bound: the larger of its bytes over the memory rate
    and its operations over the peak rate of their type (f64 for the
    FFTs and the MAC, int8 tensor-core operations for the keyswitch);
+   then one CMux step through the three PBS kernels against the exact
+   product mod 2^64 (`kernels/cmux_accuracy.py`), at gpt2's gadget and
+   at xgboost's (PBS level 2): the rms error of its coefficients, which
+   the blind rotation adds to the PBS output noise, may exceed the plain
+   `torch.fft` pipeline's by at most STEP_ERROR_RATIO;
 3. the main path: two chained `lut_batch_tables` rounds on the fused
    backend through one resident pack, each decrypting to its plaintext
    table, the reference backend decrypt-identical on round 1, and the
@@ -37,22 +42,40 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    holds against the JAX package's runtime), and launch the kernels
    rounds x (1, n, n, n) times; each round's rows and wall time are
    printed;
-6. each kernel again at the largest round's shapes (288 rows), against
+6. the encrypted GPT-2 block (`repro_torch.fhe_ml`) in both lowering
+   families, through `Session(ctx, engine, backend=...)` for `eager` and
+   `local`, over the main path's gpt2 keys and engine: the radix block
+   `lower_gpt2_block_radix(2, bits=16, msg_bits=2, seed=1)` must decrypt
+   to its integer oracle mod 2^16, alike on both backends, with every
+   output digit's noise under 1/2^(width+2), then each kernel runs at
+   its largest round's shapes (96 rows) against its plain version; the
+   narrow-LUT block `lower_gpt2_block(4, QuantSpec(3, 0.25, 4), 6,
+   seed=1)` must decrypt to the plaintext oracle `interpret`.  Each run's
+   PBS calls (rows for rows), logical PBS and launches must equal a dry
+   run's plan through a stand-in engine (the radix block: 104 rounds of
+   2,080 rows, 1,268 logical PBS; the launches: one `keyswitch_mac` per
+   keyswitch stage, n of each FFT and the MAC per PBS call), and the
+   eager narrow run's dedup stats the dry run's;
+7. each kernel again at the largest round's shapes (288 rows), against
    its plain version, timed one call at a time and back to back (the MAC
    beside `torch.einsum`), and that round under `torch.profiler`
    (`build/profile_round288.json`): device time by kernel, busy and idle
-   share, peak device memory (keys, the resident pack with its KSK limb
-   operand, the round's working set).
+   share, peak device memory (keys, the one resident pack that every
+   fused engine of the key shares, with its KSK limb operand, the round's
+   working set).
 
-Prints the card, the build time, a line per phase, a `{"radix": ...}` and
-a `{"kernels": ...}` JSON line and, last, `{"ok": true, "device": {...}}`.  Any failure
-raises and exits nonzero.  Needs CUDA; imports nothing of JAX.
+Prints the card, the build time, a line per phase, a `{"cmux_accuracy":
+...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}` and a `{"kernels": ...}`
+JSON line and, last,
+`{"ok": true, "device": {...}}`.  Any failure raises and exits nonzero.
+Needs CUDA; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import json
+import math
 import random
 import statistics
 import subprocess
@@ -71,6 +94,14 @@ SLEEP_CYCLES = 20_000_000   # about 10 ms of device time at the H100's clocks
 # JAX package's runtime runs it (tests/test_torch_api.py holds both packages
 # to these on the CPU)
 QUICKSTART_ROUNDS, QUICKSTART_ROWS = 24, 753
+# the radix GPT-2 block lower_gpt2_block_radix(2, bits=16, msg_bits=2,
+# seed=1) at gpt2's width: rounds, dispatched rows and logical PBS of its
+# dry run (tests/test_torch_fhe_ml.py holds both packages' backends to
+# these; the graph's own count, 1,316 PBS, is not what the runtime runs)
+GPT2_RADIX_ROUNDS, GPT2_RADIX_ROWS, GPT2_RADIX_PBS = 104, 2080, 1268
+# one CMux step's rms coefficient error through the kernels, at most this
+# times the plain torch.fft pipeline's on the same inputs
+STEP_ERROR_RATIO = 1.25
 
 # Data-sheet peaks by card (NVIDIA H100 data sheet, dense): memory bytes/s,
 # FP64 FLOP/s (tensor cores), int8 tensor-core OP/s.  Matched on the name
@@ -205,22 +236,34 @@ class RoundLog:
 
 class ShapeEngine:
     """Stand-in engine for a dry run: every PBS returns its input, so a
-    program runs its rounds on shapes alone and logs each round's rows."""
+    program runs its rounds on shapes alone.  Logs each PBS call's rows
+    (`lut_batch` or `lut_batch_small`) and counts keyswitch stages (one
+    per `lut_batch` or `keyswitch` call), the calls the fused engine
+    launches `keyswitch_mac` for."""
     kernel_backend = "fused"
 
     def __init__(self, device):
         self.device = device
         self.rows = []
+        self.keyswitches = 0
 
     def lut_batch(self, cts, polys):
-        self.rows.append(int(cts.shape[0]))
-        return cts
+        self.keyswitches += 1
+        return self.lut_batch_small(cts, polys)
 
     def keyswitch(self, cts):
+        self.keyswitches += 1
         return cts
 
     def lut_batch_small(self, small, polys):
-        return self.lut_batch(small, polys)
+        self.rows.append(int(small.shape[0]))
+        return small
+
+    def launches(self, n: int) -> dict:
+        """The kernel launches the fused engine makes for these calls."""
+        pbs = len(self.rows)
+        return {"keyswitch_mac": self.keyswitches, "fft_forward": pbs * n,
+                "fft_inverse": pbs * n, "external_product_mac": pbs * n}
 
 
 def logical_pbs(backend, graph) -> int:
@@ -245,9 +288,10 @@ def radix_phase(ctx, smi: str) -> dict:
             break
     want = [0, [int(a < b)]]
     gen = torch.Generator(device=ctx.device).manual_seed(SEED + 1)
-    results, largest = {}, {}
+    results, largest, sessions = {}, {}, []
     for backend in ("eager", "local"):
         sess = Session(ctx, backend=backend, kernel_backend="fused")
+        sessions.append(sess)
         engine = sess.engine
         log = engine.telemetry = RoundLog()
         if backend == "eager":
@@ -308,7 +352,158 @@ def radix_phase(ctx, smi: str) -> dict:
                                        for name, r, sec in log.rounds]}
     largest["wall_s"] = next(r["wall_ms"] for r in results["eager"]["rounds"]
                              if r["rows"] == largest["rows"]) / 1e3
-    return {"results": results, "largest": largest}
+    return {"results": results, "largest": largest, "sessions": sessions}
+
+
+def run_planned(sess, prog, enc, what: str, smi: str) -> dict:
+    """Plan `prog` by a dry run of `sess`'s backend on a `ShapeEngine`,
+    then run it on the session's engine with the launch counts set to 0
+    just before and read just after.  Raises unless the PBS calls (rows
+    for rows), the logical PBS and the launches equal the plan.  Returns
+    the outputs, the backend and what was observed."""
+    import torch
+    from repro_torch.api import make_backend
+    from repro_torch.kernels import _build
+    engine, graph = sess.engine, prog.graph
+    dry = ShapeEngine(engine.device)
+    dry_backend = make_backend(sess.backend.name, sess.ctx, dry)
+    dry_backend.execute(prog, enc)
+    plan_logical, plan_launches = logical_pbs(dry_backend, graph), dry.launches(sess.params.n)
+    log = engine.telemetry = RoundLog()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        outs = sess.run(prog, enc)
+        torch.cuda.synchronize()
+    finally:
+        engine.telemetry = None
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    rows = [r[1] for r in log.rounds]
+    ms = [r[2] * 1e3 for r in log.rounds]
+    logical = logical_pbs(sess.backend, graph)
+    obs = {"rounds_planned": len(dry.rows), "rounds_observed": len(rows),
+           "rows_planned": sum(dry.rows), "rows_observed": sum(rows),
+           "max_rows": max(rows), "pbs_logical_planned": plan_logical,
+           "pbs_logical": logical, "pbs_dispatched": sum(rows), "launches": counts,
+           "launches_planned": plan_launches, "wall_s": wall,
+           "round_ms": {"mean": statistics.mean(ms), "min": min(ms), "max": max(ms)},
+           "rounds": [{"rows": r, "wall_ms": t} for r, t in zip(rows, ms)]}
+    print(f"{what}: PBS calls planned {len(dry.rows)} observed {len(rows)}, rows planned "
+          f"{sum(dry.rows)} observed {sum(rows)} (at most {max(rows)} a call); PBS logical "
+          f"planned {plan_logical} observed {logical}; launches {counts}; program wall "
+          f"{wall:.3f} s, round mean {obs['round_ms']['mean']:.2f} min {min(ms):.2f} max "
+          f"{max(ms):.2f} ms on {smi}")
+    if rows != dry.rows or logical != plan_logical:
+        raise AssertionError(f"{what}: PBS calls of {rows} rows ({logical} PBS) observed, "
+                             f"{dry.rows} ({plan_logical}) planned")
+    if counts != plan_launches:
+        raise AssertionError(f"{what}: launches {counts}, planned {plan_launches}")
+    return {"outs": outs, "backend": sess.backend, "dry_backend": dry_backend, "obs": obs}
+
+
+def fhe_ml_phase(ctx, engine, peaks: tuple, smi: str) -> dict:
+    """The paper's encrypted GPT-2 block in both lowering families on the
+    main path's gpt2 keys and engine, each through a new
+    `Session(ctx, engine, backend=...)` per block for `eager` and
+    `local`: the radix block (16-bit activations of 2-bit digits),
+    decrypting to its integer oracle mod 2^16, alike on both backends,
+    every output digit's noise inside 1/2^(width+2), in 104 rounds of
+    2,080 rows, then each kernel on the shapes of the block's largest
+    round (96 rows) against its plain version; the narrow-LUT block
+    (6-bit messages), decrypting to the plaintext oracle `interpret` with
+    the eager dedup stats of its dry run.  Every run holds its rounds,
+    rows and launches to a dry run's plan.  Raises on any difference;
+    returns what each run observed and the kernels' measurements at 96
+    rows."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.core.integer import RadixCiphertext
+    from repro_torch.fhe_ml import QuantSpec, lower
+    from repro_torch.fhe_ml.executor import interpret
+    from repro_torch.fhe_ml.quantize import calibrate_radix, quantize_to_radix
+    p = ctx.params
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 2)
+    budget = 1.0 / 2 ** (p.width + 2)
+    results = {"radix_block": {}, "narrow_block": {}}
+
+    # the radix block, on the input recipe of its test
+    g, meta = lower.lower_gpt2_block_radix(2, bits=16, msg_bits=2, seed=1)
+    xf = np.random.default_rng(3).uniform(-1, 1, size=(2,))
+    q = quantize_to_radix(xf, calibrate_radix(xf, 16, 2, qmax=meta["input_qmax"]))
+    want = [int(v) for v in meta["int_fn"](q) % (1 << 16)]
+    enc = None
+    for name in ("eager", "local"):
+        sess = Session(ctx, engine, backend=name)
+        prog = sess.compile(g, meta["in_specs"], meta["out_specs"])
+        enc = enc or sess.encrypt_inputs(gen, [q], prog)
+        what = f"fhe_ml radix block {name}"
+        run = run_planned(sess, prog, enc, what, smi)
+        obs = run["obs"]
+        got = [int(v) for v in sess.decrypt_outputs(prog, run["outs"])[0]]
+        spec = sess.int_ctx.spec(16, 2)
+        out = run["outs"][0]
+        noise = max(float(np.abs(sess.int_ctx.digit_noise(RadixCiphertext(spec, vec), w)).max())
+                    for vec, w in zip(out.reshape(-1, spec.n_digits, out.shape[-1]), want))
+        obs.update(params=p.name, values=[float(v) for v in xf], q=[int(v) for v in q],
+                   decrypt=got, oracle=want, max_digit_noise=noise, noise_budget=budget)
+        print(f"{what}: x={obs['values']} q={obs['q']} decrypt {got} oracle {want}; worst "
+              f"digit noise {noise:.3e} (budget {budget:.3e})")
+        if got != want:
+            raise AssertionError(f"{what}: decrypts {got}, oracle {want}")
+        if (obs["rounds_planned"], obs["rows_planned"], obs["pbs_logical_planned"]) != \
+                (GPT2_RADIX_ROUNDS, GPT2_RADIX_ROWS, GPT2_RADIX_PBS):
+            raise AssertionError(f"{what}: the dry run plans {obs['rounds_planned']} rounds "
+                                 f"of {obs['rows_planned']} rows and "
+                                 f"{obs['pbs_logical_planned']} PBS, want "
+                                 f"{GPT2_RADIX_ROUNDS}, {GPT2_RADIX_ROWS}, {GPT2_RADIX_PBS}")
+        if noise >= budget:
+            raise AssertionError(f"{what}: digit noise {noise:.3e} over budget {budget:.3e}")
+        results["radix_block"][name] = obs
+    if results["radix_block"]["eager"]["decrypt"] != results["radix_block"]["local"]["decrypt"]:
+        raise AssertionError("fhe_ml radix block: eager and local decrypt apart")
+    # every kernel at the shapes of the block's largest round
+    rows = results["radix_block"]["eager"]["max_rows"]
+    cts = ctx.encrypt(gen, torch.randint(0, p.plaintext_modulus, (rows,), generator=gen,
+                                         device=ctx.device))
+    print(f"fhe_ml radix block: each kernel at {rows} rows against its plain version")
+    at_rows = kernels_at_rows(cts, engine.fused_pack, gen, peaks, smi)
+    del sess, run, enc, cts
+
+    # the narrow-LUT block at gpt2's own 6-bit width
+    g, _ = lower.lower_gpt2_block(4, QuantSpec(3, 0.25, 4), p.width, seed=1)
+    q = np.random.default_rng(3).integers(0, 8, (4,))
+    want = [int(v) for v in interpret(g, [q], p.width)[g.outputs[0]]]
+    enc = None
+    for name in ("eager", "local"):
+        sess = Session(ctx, engine, backend=name)
+        prog = sess.compile(g)
+        enc = enc or sess.encrypt_inputs(gen, [q], prog)
+        what = f"fhe_ml narrow block {name}"
+        run = run_planned(sess, prog, enc, what, smi)
+        obs = run["obs"]
+        got = [int(v) for v in sess.decrypt_outputs(prog, run["outs"])[0]]
+        noise = ctx.decrypt_noise(run["outs"][0], torch.tensor(want, device=ctx.device))
+        noise = noise.abs().max().item()
+        obs.update(params=p.name, q=[int(v) for v in q], decrypt=got, oracle=want,
+                   max_noise=noise, noise_budget=budget)
+        print(f"{what}: q={obs['q']} decrypt {got} oracle {want}; worst output noise "
+              f"{noise:.3e} (budget {budget:.3e})")
+        if got != want:
+            raise AssertionError(f"{what}: decrypts {got}, interpret {want}")
+        if name == "eager":
+            obs.update(stats=dict(run["backend"].stats),
+                       stats_planned=dict(run["dry_backend"].stats))
+            print(f"{what}: stats {obs['stats']}, dry run {obs['stats_planned']}")
+            if obs["stats"] != obs["stats_planned"]:
+                raise AssertionError(f"{what}: stats {obs['stats']}, dry run "
+                                     f"{obs['stats_planned']}")
+        if noise >= budget:
+            raise AssertionError(f"{what}: output noise {noise:.3e} over budget {budget:.3e}")
+        results["narrow_block"][name] = obs
+    return {"runs": results, "kernels_radix_keys": at_rows}
 
 
 def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
@@ -397,6 +592,7 @@ def main() -> int:
     from repro_torch.core.pbs import TFHEContext
     from repro_torch.kernels import _build, external_product as ep, fourstep_fft as ff
     from repro_torch.kernels import keyswitch as ks
+    from repro_torch.kernels.cmux_accuracy import step_errors
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -549,6 +745,24 @@ def main() -> int:
           torus_close, "1e-12 x scale + 1",
           nbytes(out, acc_in) + nbytes(acc_in), inv_flops, peaks[1])
 
+    # -- one CMux step against the exact product: the kernels' float error ---
+    accuracy = {}
+    for ap in (p, PAPER_PARAMS["xgboost"]):
+        e = step_errors(ap, B, gen)
+        ratio = e["kernels"]["rms"] / e["torch_fft"]["rms"]
+        accuracy[ap.name] = {**e, "rows": B, "ratio": ratio}
+        print(f"CMux step at {ap.name}'s shapes (PBS gadget 2^{ap.pbs_base_log} x "
+              f"{ap.pbs_level}), {B} rows, coefficient error against the exact product: "
+              f"kernels rms 2^{math.log2(e['kernels']['rms']):.3f} max 2^"
+              f"{math.log2(e['kernels']['max']):.3f}, torch.fft rms 2^"
+              f"{math.log2(e['torch_fft']['rms']):.3f} max 2^"
+              f"{math.log2(e['torch_fft']['max']):.3f} of the torus; ratio {ratio:.3f} "
+              f"(limit {STEP_ERROR_RATIO}) on {smi}")
+        if ratio > STEP_ERROR_RATIO:
+            raise AssertionError(f"CMux step at {ap.name}: the kernels' error is {ratio:.3f}x "
+                                 "the torch.fft pipeline's")
+    print(json.dumps({"cmux_accuracy": accuracy}))
+
     # -- the main path: two chained fused rounds, reference on round 1 --------
     rng = torch.Generator().manual_seed(SEED)
     t1 = torch.randperm(p.plaintext_modulus, generator=rng)
@@ -601,6 +815,11 @@ def main() -> int:
     # -- the radix path: the quickstart program on 32-bit integers ----------
     radix = radix_phase(ctx, smi)
     largest = radix["largest"]
+
+    # -- the encrypted GPT-2 block, both lowering families, on one engine ------
+    fhe = fhe_ml_phase(ctx, engine, peaks, smi)
+    print(json.dumps({"fhe_ml": fhe}))
+
     at_rows = kernels_at_rows(largest["cts"], pack, gen, peaks, smi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -613,12 +832,18 @@ def main() -> int:
     if not torch.equal(ctx.decrypt(big["result"]), ctx.decrypt(largest["out"])):
         raise AssertionError(f"the profiled {largest['rows']}-row round decrypts unlike "
                              "its run in the program")
+    # one resident pack per key: every fused engine alive reads `pack`
+    engines = [engine] + [s.engine for s in radix["sessions"]]
+    if any(e.fused_pack is not pack for e in engines):
+        raise AssertionError("an engine of this key holds a pack of its own")
     print(f"profile {largest['rows']}-row round: device busy {big['busy_ms']:.1f} ms, idle "
           f"share {big['idle_share']:.3f} of its untraced {largest['wall_s']:.3f} s, peak "
-          f"device memory {peak / 1e9:.2f} GB on {smi}")
+          f"device memory {peak / 1e9:.2f} GB with {len(engines)} fused engines alive on "
+          f"one resident pack, on {smi}")
     print(json.dumps({"radix": radix["results"], "round288": {
         "rows": largest["rows"], "wall_s": largest["wall_s"], "busy_ms": big["busy_ms"],
         "idle_share": big["idle_share"], "events": big["events"], "peak_gb": peak / 1e9,
+        "engines_alive": len(engines),
         "by_kernel": big["by_kernel"], "kernels": at_rows}}))
 
     counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
@@ -626,10 +851,17 @@ def main() -> int:
         key = counter.get(row["name"], row["name"])
         row["launches"] = round2[key]
         row["launches_radix"] = {b: r["launches"][key] for b, r in radix["results"].items()}
+        row["launches_fhe_ml"] = {f"{block} {b}": r["launches"][key]
+                                  for block, runs in fhe["runs"].items()
+                                  for b, r in runs.items()}
         m = at_rows.get(row["name"])
         if m is not None:
             row.update({f"{k}_288": m[k] for k in ("ms", "ms_b2b", "bound_ms", "bound_by",
                                                    "library_ms")})
+        m = fhe["kernels_radix_keys"].get(row["name"])
+        if m is not None:       # the radix GPT-2 block's largest round, PBS level 2
+            row.update({f"{k}_radix96": m[k] for k in ("max_abs_err", "ms", "ms_b2b",
+                                                       "bound_ms", "bound_by", "library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

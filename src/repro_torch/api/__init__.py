@@ -12,10 +12,13 @@ in-process served FHE (the port of `repro.api`).
   tracing   `EncryptedInt` / `EncryptedTensor`: Python operators record
             `radix_*`/linear/`lut` nodes into a
             `repro_torch.compiler.ir.Graph`.
-  session   `Session.trace` -> `Program`; encrypt/run/decrypt.
+  session   `Session.trace` -> `Program`; `Session.compile` adopts
+            hand-lowered graphs (`repro_torch.fhe_ml`);
+            encrypt/run/decrypt.
   backends  `EagerBackend` (direct IntegerContext + KS/ACC-dedup PBS),
             `LocalBackend` (`serve.IrInterpreter`); "serve" is not
-            ported yet and raises `NotImplementedError`.
+            ported yet (ROADMAP.md, queue A, item 3) and raises
+            `NotImplementedError`.
 """
 from repro_torch.api.backends import (Backend, EagerBackend, LocalBackend,  # noqa: F401
                                       eval_linear_ct_op, eval_radix_vector,

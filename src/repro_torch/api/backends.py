@@ -21,7 +21,7 @@ keyswitch and decrypt-identical after it.)
 `backend="serve"` and `LocalBackend(fused=True)` need the fused round
 scheduler and the serving runtime (`serve/scheduler.py`,
 `serve/runtime.py`), which are not ported yet (ROADMAP.md, queue A,
-item 7): they raise `NotImplementedError` rather than run on another
+item 3): they raise `NotImplementedError` rather than run on another
 backend.
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ from repro_torch.core.params import TFHEParams
 
 _NOT_PORTED = ("the fused round scheduler and the serving runtime "
                "(serve/scheduler.py, serve/runtime.py) are not ported yet "
-               "(ROADMAP.md, queue A, item 7)")
+               "(ROADMAP.md, queue A, item 3)")
 
 
 @runtime_checkable

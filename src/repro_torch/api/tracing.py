@@ -9,8 +9,8 @@ Python operators record IR nodes instead of computing.  An
 `EncryptedInt` is a radix wide integer — its last tensor axis is the
 little-endian digit vector (`repro_torch.core.integer`), and `+`, `-`, `*`,
 comparisons and `relu()` record `radix_*` nodes.  An `EncryptedTensor`
-is a tensor of plain width-bit ciphertext slots — the `repro.fhe_ml`
-value kind — and records the linear/`lut` nodes `FheTensor` already
+is a tensor of plain width-bit ciphertext slots — the
+`repro_torch.fhe_ml` value kind — and records the linear/`lut` nodes `FheTensor` already
 implements.
 
 The specs (`IntSpec`, `TensorSpec`, `RawSpec`) describe program inputs
@@ -265,7 +265,8 @@ class EncryptedInt:
         """Plaintext integer matmul across the integer-vector axis: for a
         vector of V encrypted integers and an integer (V, V_out) matrix,
         out[j] = sum_i W[i, j] * self[i] mod 2^bits (a `radix_linear`
-        node — the quantize-to-radix linear layer of `repro.fhe_ml`).
+        node — the quantize-to-radix linear layer of
+        `repro_torch.fhe_ml`).
 
         Example::
 

@@ -17,9 +17,10 @@ constants ride along as numpy arrays.  Ops:
                                       pre-combined linearly, footnote 4)
     concat/reshape                    layout only
 
-The tracer below builds graphs from numpy-like code; `repro.fhe_ml`
-lowers quantized transformer blocks into it, and `repro_torch.compiler.passes`
-lowers graphs to physical Taurus ops with both dedup passes applied.
+The tracer below builds graphs from numpy-like code;
+`repro_torch.fhe_ml` lowers quantized transformer blocks into it, and
+`repro_torch.compiler.passes` lowers graphs to physical Taurus ops with
+both dedup passes applied.
 """
 from __future__ import annotations
 
@@ -380,7 +381,7 @@ class FheTensor:
         (V_in, V_out) matrix (negative weights lower through the base
         complement, so two's-complement semantics hold as long as the
         true accumulator magnitude stays below 2^(bits-1) — the
-        `repro.fhe_ml.quantize` range check enforces that bound)."""
+        `repro_torch.fhe_ml.quantize` range check enforces that bound)."""
         W = np.asarray(W, np.int64)
         assert len(self.shape) == 2 and self.shape[0] == W.shape[0], (
             f"radix_linear needs a (V_in, D) digit tensor matching W rows: "

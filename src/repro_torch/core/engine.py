@@ -4,8 +4,9 @@ The engine is the execution backend later layers (integers, compiler,
 serving) call.  Kernel backends: `kernel_backend="fused"` (the default)
 runs `repro_torch.kernels.fused_pbs` — the FFT / external-product /
 keyswitch stages as hand-written CUDA kernels against a `FusedPbsPack`
-of resident transform-domain key operands, built lazily on first use
-and reused across every round (the paper's key-reuse strategy).
+of resident transform-domain key operands, built lazily on first use,
+shared by every engine of one key and reused across every round (the
+paper's key-reuse strategy).
 `"reference"` runs the plain PyTorch pipeline in `repro_torch.core.batch`.
 Both are decrypt-identical; the keyswitch stage is bit-identical.
 
@@ -96,12 +97,13 @@ class TaurusEngine:
 
     @property
     def fused_pack(self):
-        """The resident `FusedPbsPack` for the fused backend, built on
-        first use and cached."""
+        """The resident `FusedPbsPack` for the fused backend: one per key
+        (`FusedPbsPack.shared`), so engines of one context share it.
+        Built on first use."""
         pack = getattr(self, "_fused_pack", None)
         if pack is None:
             from repro_torch.kernels.fused_pbs import FusedPbsPack
-            pack = self._fused_pack = FusedPbsPack.build(
+            pack = self._fused_pack = FusedPbsPack.shared(
                 self.bsk_f, self.ksk, self.params)
         return pack
 

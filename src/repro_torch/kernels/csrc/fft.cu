@@ -49,11 +49,17 @@
 // barrier each instead of seven radix-2 stages.
 // Roots come from two small tables (256 + 4M/256 entries) computed per
 // block in shared memory with sincospi: exp(2 pi i e / 4M) is the product
-// of one entry of each, which gives the twist and every sub-FFT root with
-// no gather from device memory; the four-step twiddles of a butterfly's
-// outputs are a recurrence from two such roots.  Sizes are template
-// parameters (one instantiation per lg M), so every index is shifts and
-// masks.  Column and row buffers have a row stride of one more than their
+// of one entry of each, which gives the twist and the four-step twiddles
+// with no gather from device memory, and every sub-FFT root is one entry.
+// The blind rotation adds n transforms' rounding to the accumulator, where
+// it is PBS output noise, so the roots are held to a few ulp: a butterfly's
+// 16 four-step twiddles are four lookups, each followed by a recurrence of
+// at most three products (on an H100, one lookup each cost a quarter more
+// time, and a recurrence over all 16 made a CMux step's error 1.3x
+// torch.fft's and the PBS output noise visibly larger;
+// kernels/cmux_accuracy.py measures the step against the exact product).
+// Sizes are template parameters (one instantiation per lg M), so every
+// index is shifts and masks.  Column and row buffers have a row stride of one more than their
 // width, so strided accesses hit distinct banks; the gather reads each
 // peer along runs of C/P consecutive values.  Every load a thread makes is
 // issued before the tables are built, so the loads are in flight while the
@@ -79,6 +85,7 @@ enum Mode { kFwdFloat = 0, kFwdDigits = 1, kInvFloat = 2, kInvTorus = 3 };
 __host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
 
 constexpr int kMaxRadix = 16;   // radix of the Stockham passes (8 or 16)
+constexpr int kTwRun = 4;       // four-step twiddles per table lookup
 
 struct Args {
   const void* in;       // x (B, N) f64 | src (B, K, N) int64 | planes f64
@@ -206,7 +213,7 @@ __device__ __forceinline__ double2 zroot(const double2* hi, const double2* lo, i
 // One Stockham pass over NSEQ interleaved sequences of length L, value i
 // of sequence s at i * STRIDE + s; NS is the product of earlier radices.
 // With TW, output r, row m1 = d + r * NS of column j2 = j2_0 + s, is
-// multiplied by the four-step twiddle W_M^(m1 j2), by a recurrence over r.
+// multiplied by the four-step twiddle W_M^(m1 j2).
 template <class CF, int L, int NSEQ, int STRIDE, int RADIX, int NS, bool TW>
 __device__ __forceinline__ void stockham_pass(const double2* __restrict__ in,
                                               double2* __restrict__ out,
@@ -222,38 +229,28 @@ __device__ __forceinline__ void stockham_pass(const double2* __restrict__ in,
 #pragma unroll
     for (int r = 0; r < RADIX; ++r) v[r] = in[(jb + r * NB) * STRIDE + s];
     if (NS > 1) {
-      // W^(k r) for r < RADIX from the table entries of r = 1, 2, 4.
+      // W^(k r), each a table entry: k r < NS * RADIX, so k r STEP < TH.
       constexpr int STEP = CF::TH / (NS * RADIX);
-      double2 w[RADIX];
-      w[1] = cconj(hi[k * STEP]);
-      if constexpr (RADIX > 2) {
-        w[2] = cconj(hi[2 * k * STEP]);
-        w[3] = cmul(w[1], w[2]);
-      }
-      if constexpr (RADIX > 4) {
-        w[4] = cconj(hi[4 * k * STEP]);
-        w[5] = cmul(w[1], w[4]);
-        w[6] = cmul(w[2], w[4]);
-        w[7] = cmul(w[3], w[4]);
-      }
-      if constexpr (RADIX > 8) {
-        w[8] = cconj(hi[8 * k * STEP]);
 #pragma unroll
-        for (int r = 9; r < 16; ++r) w[r] = cmul(w[r - 8], w[8]);
-      }
-#pragma unroll
-      for (int r = 1; r < RADIX; ++r) v[r] = cmul(v[r], w[r]);
+      for (int r = 1; r < RADIX; ++r) v[r] = cmul(v[r], cconj(hi[r * k * STEP]));
     }
     dft<RADIX>(v);
     const int d = (jb / NS) * NS * RADIX + k;
     if constexpr (TW) {
+      // Every kTwRun-th twiddle from the tables (m1 j2 < R C = M), the
+      // ones between by a recurrence of at most kTwRun - 1 products: a
+      // recurrence over all of r grows its rounding with r.
       const int j2 = j2_0 + s;
-      double2 w = cconj(zroot<CF>(hi, lo, 4 * d * j2));
+      constexpr int RUN = RADIX < kTwRun ? RADIX : kTwRun;
       const double2 step = cconj(zroot<CF>(hi, lo, 4 * NS * j2));
 #pragma unroll
-      for (int r = 0; r < RADIX; ++r) {
-        v[r] = cmul(v[r], w);
-        if (r + 1 < RADIX) w = cmul(w, step);
+      for (int r0 = 0; r0 < RADIX; r0 += RUN) {
+        double2 w = cconj(zroot<CF>(hi, lo, 4 * (d + r0 * NS) * j2));
+#pragma unroll
+        for (int r = r0; r < r0 + RUN; ++r) {
+          v[r] = cmul(v[r], w);
+          if (r + 1 < r0 + RUN) w = cmul(w, step);
+        }
       }
     }
 #pragma unroll

@@ -16,7 +16,9 @@ explicit as RESIDENT operands.
     extract       `core.glwe.sample_extract`.
 
 `FusedPbsPack` is the residency contract: the Fourier BSK is laid out in
-the MAC kernel's re/im plane layout ONCE per key, and the KSK in the
+the MAC kernel's re/im plane layout ONCE per key (`FusedPbsPack.shared`
+keeps one pack per key's `bsk_f` tensor, so every engine, session and
+backend of one context reads the same 2.6 GB at gpt2), and the KSK in the
 keyswitch kernel's limb operand (`keyswitch.ksk_limbs`: its bytes,
 K-major, (8T, S16) uint8, as much memory again as the int64 key, which
 the reference engine keeps), and every later round reads the same
@@ -27,8 +29,10 @@ decryption on the 64-bit torus), and the TPU's tiling knobs (`block_f`,
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import batch as batch_mod, decompose as dec, glwe, lwe
 from repro_torch.core.params import TFHEParams
@@ -110,10 +114,16 @@ def pbs_batch_fused(big_cts: torch.Tensor, lut_polys: torch.Tensor,
                            bsk_planes, params)
 
 
+# a context's bsk_f tensor -> the resident pack of its key, dropped with
+# the tensor (WeakIdKeyDictionary, since a tensor's == is elementwise)
+_PACKS = WeakIdKeyDictionary()
+_PACKS_LOCK = threading.Lock()
+
+
 @dataclasses.dataclass
 class FusedPbsPack:
     """Resident kernel operands for one evaluation-key pair, built once
-    per engine and read by every later round."""
+    per key (`shared`) and read by every later round."""
     params: TFHEParams
     bsk_planes: torch.Tensor         # (n, 2, J, K, M) f64 planes
     ksk_limbs: torch.Tensor          # (8T, S16) uint8, S = big_n * ks_level
@@ -124,6 +134,19 @@ class FusedPbsPack:
         n_from, level, t = ksk.shape
         return cls(params, bsk_to_planes(bsk_f),
                    keyswitch.ksk_limbs(ksk.reshape(n_from * level, t)))
+
+    @classmethod
+    def shared(cls, bsk_f: torch.Tensor, ksk: torch.Tensor,
+               params: TFHEParams) -> "FusedPbsPack":
+        """The one pack of the key whose Fourier BSK is `bsk_f` (an
+        engine is built from one context's bsk_f, ksk and params), built
+        on the first call and returned by every later one while bsk_f
+        lives."""
+        with _PACKS_LOCK:
+            pack = _PACKS.get(bsk_f)
+            if pack is None:
+                pack = _PACKS[bsk_f] = cls.build(bsk_f, ksk, params)
+            return pack
 
     # -- the engine entry points -------------------------------------------
     def pbs_batch(self, big_cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:

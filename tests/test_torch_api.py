@@ -408,13 +408,13 @@ def test_interpreter_vector_fanout_under_threads(tctx_2bit):
 # --- what is not ported yet ------------------------------------------------------
 
 def test_serve_and_fused_local_are_not_ported(tctx_2bit):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         api.Session(tctx_2bit, backend="serve")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         make_backend("serve", tctx_2bit)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         LocalBackend(tctx_2bit, fused=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         api.Session(tctx_2bit, backend="local", fused=True)
     with pytest.raises(ValueError, match="unknown backend"):
         make_backend("remote", tctx_2bit)

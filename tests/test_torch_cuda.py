@@ -11,16 +11,24 @@ digits against the key's limb operand), the FFTs within 1e-12 of the
 output scale, the MAC within 1e-9 relative, and the torus output of
 `fft_inverse_torus` within 1e-12 of the float inverse's scale plus one
 (the f64 transform's rounding, then one torus unit);
-PBS rounds and radix integer ops decrypt exactly to their oracles.
+PBS rounds, radix integer ops and the `fhe_ml` blocks decrypt exactly
+to their oracles; the quantize-to-radix MLP's floats stay within its
+`tol_fn`.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
+from repro_torch.api import Session  # noqa: E402
 from repro_torch.compiler.ir import radix_round_plan  # noqa: E402
 from repro_torch.core.engine import TaurusEngine  # noqa: E402
 from repro_torch.core.integer import IntegerContext  # noqa: E402
-from repro_torch.core.params import TEST_PARAMS, TEST_PARAMS_4BIT, TEST_PARAMS_K2  # noqa: E402
+from repro_torch.core.params import TEST_PARAMS, TEST_PARAMS_4BIT, TEST_PARAMS_6BIT  # noqa: E402
+from repro_torch.core.params import TEST_PARAMS_K2  # noqa: E402
+from repro_torch.fhe_ml import QuantSpec, lower, quantize  # noqa: E402
+from repro_torch.fhe_ml.executor import interpret  # noqa: E402
 from repro_torch.core import torus  # noqa: E402
 from repro_torch.core.pbs import TFHEContext  # noqa: E402
 from repro_torch.kernels import external_product, fourstep_fft, keyswitch  # noqa: E402
@@ -211,3 +219,51 @@ def test_radix_integers_on_the_card(int_ctx, op, ir_op, a, b, want):
     assert launch_counts() == {"keyswitch_mac": rounds, "fft_forward": rounds * n,
                                "fft_inverse": rounds * n,
                                "external_product_mac": rounds * n}
+
+
+@pytest.fixture(scope="module")
+def ctx_6bit():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return TFHEContext.create(gen, TEST_PARAMS_6BIT), gen
+
+
+@pytest.mark.parametrize("backend", ["eager", "local"])
+def test_narrow_gpt2_block_on_the_card(ctx_6bit, backend):
+    """The narrow-LUT GPT-2 block (11 lut nodes, 48 PBS of 6-bit tables)
+    on the port's own keys through the fused engine decrypts to
+    `interpret`, and every kernel launched."""
+    ctx, gen = ctx_6bit
+    g, _ = lower.lower_gpt2_block(4, QuantSpec(3, 0.25, 4), 6, seed=1)
+    q = np.random.default_rng(3).integers(0, 8, (4,))
+    sess = Session(ctx, backend=backend)
+    prog = sess.compile(g)
+    enc = sess.encrypt_inputs(gen, [q], prog)
+    reset_launch_counts()
+    got = sess.decrypt_outputs(prog, sess.run(prog, enc))[0]
+    np.testing.assert_array_equal(got, interpret(g, [q], 6)[g.outputs[0]])
+    assert min(launch_counts().values()) > 0
+
+
+@pytest.mark.parametrize("backend", ["eager", "local"])
+def test_quantize_to_radix_mlp_on_the_card(int_ctx, backend):
+    """quantize_to_radix -> the 8-bit radix MLP -> dequantize_radix on the
+    card: the integers equal `int_fn`, the floats are within `tol_fn` of
+    the float model."""
+    ic, gen = int_ctx
+    rng = np.random.default_rng(0)
+    w1, w2 = rng.normal(size=(2, 3)) * 0.5, rng.normal(size=(3, 2)) * 0.5
+    xf = rng.uniform(-1, 1, size=(2,))
+    g, meta = lower.lower_mlp_radix(w1, w2, bits=8, msg_bits=2)
+    rq = quantize.calibrate_radix(xf, 8, 2, qmax=meta["input_qmax"])
+    q = quantize.quantize_to_radix(xf, rq)
+    sess = Session(ic.ctx, ic.engine, backend=backend)
+    prog = sess.compile(g, meta["in_specs"], meta["out_specs"])
+    reset_launch_counts()
+    got = sess(prog, gen, q)[0]
+    assert min(launch_counts().values()) > 0
+    np.testing.assert_array_equal(got % 256, meta["int_fn"](q) % 256)
+    yhat = quantize.dequantize_radix(
+        got, quantize.RadixQuantSpec(8, 2, rq.scale * meta["out_scale_mul"]))
+    assert np.all(np.abs(yhat - meta["float_fn"](xf)) <= meta["tol_fn"](rq))

@@ -124,6 +124,19 @@ def test_chained_rounds_through_one_pack(ctx_2bit, tctx_2bit, engines_2bit):
     assert set(launch_counts().values()) == {0}     # CPU: plain versions only
 
 
+def test_engines_of_one_key_share_one_pack(ctx_2bit, tctx_2bit, engines_2bit):
+    """Every fused engine and Session of one context reads one resident
+    pack; another context (here a copy of the same keys) gets its own."""
+    from repro_torch.api import Session
+    pack = engines_2bit["fused"].fused_pack
+    again = TaurusEngine.from_context(tctx_2bit, device="cpu")
+    sessions = [Session(tctx_2bit, backend=b, kernel_backend="fused") for b in ("eager", "local")]
+    assert again is not engines_2bit["fused"] and again.fused_pack is pack
+    assert all(s.engine.fused_pack is pack for s in sessions)
+    other = port_context(ctx_2bit)
+    assert TaurusEngine.from_context(other, device="cpu").fused_pack is not pack
+
+
 def test_key_bytes_and_bytes_streamed(engine_2bit, pallas_engine_2bit, engines_2bit):
     for eng in engines_2bit.values():
         assert eng.key_bytes == engine_2bit.key_bytes

@@ -149,3 +149,44 @@ def test_entry_points_refuse_meta_tensors():
     planes = torch.empty((2, 2, 2, 32), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="fft_inverse_torus"):
         fourstep_fft.fft_inverse_torus(planes, None)
+
+
+# --- one CMux step against the exact product (kernels/cmux_accuracy.py) -------
+
+def schoolbook_mac(digits, polys):
+    """sum_j digits[b, j] * polys[j, k] mod (X^n + 1, 2^64), in Python ints."""
+    Bs, J, n = digits.shape
+    K = polys.shape[1]
+    out = np.zeros((Bs, K, n), dtype=np.uint64)
+    for b in range(Bs):
+        for k in range(K):
+            acc = [0] * n
+            for j in range(J):
+                d, w = digits[b, j].tolist(), polys[j, k].tolist()
+                for s in range(n):
+                    for t in range(n):
+                        i, sign = (s + t, 1) if s + t < n else (s + t - n, -1)
+                        acc[i] += sign * d[s] * w[t]
+            out[b, k] = [v % 2 ** 64 for v in acc]
+    return out
+
+
+def test_exact_mac_matches_schoolbook():
+    from repro_torch.kernels.cmux_accuracy import exact_mac
+    rng = np.random.default_rng(7)
+    n = 32
+    digits = rng.integers(-(1 << 21), 1 << 21, (2, 3, n))
+    polys = rng.integers(0, 2 ** 64, (3, 2, n), dtype=np.uint64)
+    got = exact_mac(torch.as_tensor(digits), u64_to_tensor(polys, "cpu"))
+    np.testing.assert_array_equal(tensor_to_u64(got), schoolbook_mac(digits, polys))
+
+
+def test_step_errors_measure_the_float_rounding():
+    """On CPU tensors both pipelines are the plain torch.fft one: their
+    errors against the exact step are the f64 rounding, nonzero and far
+    under the PBS noise (2^-30 of the torus at these sizes)."""
+    from repro_torch.core.params import TEST_PARAMS_4BIT
+    from repro_torch.kernels.cmux_accuracy import step_errors
+    e = step_errors(TEST_PARAMS_4BIT, 2, torch.Generator().manual_seed(3))
+    for name in ("kernels", "torch_fft"):
+        assert 0 < e[name]["rms"] <= e[name]["max"] < 2.0 ** -30, (name, e[name])
