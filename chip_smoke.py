@@ -62,11 +62,25 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    (`build/profile_round288.json`): device time by kernel, busy and idle
    share, peak device memory (keys, the one resident pack that every
    fused engine of the key shares, with its KSK limb operand, the round's
-   working set).
+   working set);
+8. the serving runtime (`repro_torch.serve`): four clients at once
+   through `Session(ctx, engine, backend="serve")` on the main path's
+   keys and engine, started paused — the radix block, a replay of its
+   ciphertexts, the narrow block and the quickstart program, on the
+   encryptions the earlier phases decrypted.  Each must decrypt to its
+   oracle and its eager run, the replay's rows must all ride the
+   original's (dedup hits >= 1,268), dedup must dispatch fewer rows than
+   were asked for, the fused rounds' padded rows must sum to the
+   scheduler's and the engine's counts, and the launches must be one
+   keyswitch and n of each FFT and the MAC per fused round; one mid-wave
+   fused round is traced (`build/profile_serve_round.json`), each kernel
+   runs at the wave's largest round against its plain version, and the
+   same wave on two shards must decrypt alike on one resident pack with
+   peak memory less than one pack above one shard's.
 
 Prints the card, the build time, a line per phase, a `{"cmux_accuracy":
-...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}` and a `{"kernels": ...}`
-JSON line and, last,
+...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}`, a `{"serve": ...}` and a
+`{"kernels": ...}` JSON line and, last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits nonzero.
 Needs CUDA; imports nothing of JAX.
 """
@@ -102,6 +116,10 @@ GPT2_RADIX_ROUNDS, GPT2_RADIX_ROWS, GPT2_RADIX_PBS = 104, 2080, 1268
 # one CMux step's rms coefficient error through the kernels, at most this
 # times the plain torch.fft pipeline's on the same inputs
 STEP_ERROR_RATIO = 1.25
+# the serve wave: a request not done after this many seconds fails the
+# phase; the fused round traced under the profiler (mid-wave)
+SERVE_TIMEOUT_S = 600
+SERVE_PROBE_ROUND = 20
 
 # Data-sheet peaks by card (NVIDIA H100 data sheet, dense): memory bytes/s,
 # FP64 FLOP/s (tensor cores), int8 tensor-core OP/s.  Matched on the name
@@ -276,7 +294,8 @@ def radix_phase(ctx, smi: str) -> dict:
     """The quickstart program on 32-bit integers through the eager and the
     local backend; raises on a wrong decrypt, a round count off the plan
     or launch counts off rounds x (1, n, n, n).  Returns per-backend
-    results and the largest round's inputs and output (from eager)."""
+    results, the largest round's inputs and output (from eager) and the
+    eager run's program and encryption."""
     import torch
     from repro_torch.api import IntSpec, Session, make_backend
     from repro_torch.kernels import _build
@@ -288,7 +307,7 @@ def radix_phase(ctx, smi: str) -> dict:
             break
     want = [0, [int(a < b)]]
     gen = torch.Generator(device=ctx.device).manual_seed(SEED + 1)
-    results, largest, sessions = {}, {}, []
+    results, largest, sessions, inputs = {}, {}, [], {}
     for backend in ("eager", "local"):
         sess = Session(ctx, backend=backend, kernel_backend="fused")
         sessions.append(sess)
@@ -307,6 +326,8 @@ def radix_phase(ctx, smi: str) -> dict:
         prog = sess.trace(lambda x, y: ((x * y).relu(), x < y),
                           IntSpec(32, msg_bits=2), IntSpec(32, msg_bits=2))
         enc = sess.encrypt_inputs(gen, [a, b], prog)
+        inputs.setdefault("prog", prog)
+        inputs.setdefault("enc", enc)
         # the plan: the same program on shapes alone, through a stand-in engine
         dry = ShapeEngine(ctx.device)
         dry_backend = make_backend(backend, ctx, dry)
@@ -352,7 +373,8 @@ def radix_phase(ctx, smi: str) -> dict:
                                        for name, r, sec in log.rounds]}
     largest["wall_s"] = next(r["wall_ms"] for r in results["eager"]["rounds"]
                              if r["rows"] == largest["rows"]) / 1e3
-    return {"results": results, "largest": largest, "sessions": sessions}
+    return {"results": results, "largest": largest, "sessions": sessions,
+            "inputs": inputs}
 
 
 def run_planned(sess, prog, enc, what: str, smi: str) -> dict:
@@ -415,8 +437,8 @@ def fhe_ml_phase(ctx, engine, peaks: tuple, smi: str) -> dict:
     (6-bit messages), decrypting to the plaintext oracle `interpret` with
     the eager dedup stats of its dry run.  Every run holds its rounds,
     rows and launches to a dry run's plan.  Raises on any difference;
-    returns what each run observed and the kernels' measurements at 96
-    rows."""
+    returns what each run observed, the kernels' measurements at 96 rows
+    and each block's program and encryption."""
     import numpy as np
     import torch
     from repro_torch.api import Session
@@ -428,6 +450,7 @@ def fhe_ml_phase(ctx, engine, peaks: tuple, smi: str) -> dict:
     gen = torch.Generator(device=ctx.device).manual_seed(SEED + 2)
     budget = 1.0 / 2 ** (p.width + 2)
     results = {"radix_block": {}, "narrow_block": {}}
+    inputs = {}
 
     # the radix block, on the input recipe of its test
     g, meta = lower.lower_gpt2_block_radix(2, bits=16, msg_bits=2, seed=1)
@@ -464,13 +487,14 @@ def fhe_ml_phase(ctx, engine, peaks: tuple, smi: str) -> dict:
         results["radix_block"][name] = obs
     if results["radix_block"]["eager"]["decrypt"] != results["radix_block"]["local"]["decrypt"]:
         raise AssertionError("fhe_ml radix block: eager and local decrypt apart")
+    inputs["radix_block"] = {"prog": prog, "enc": enc}
     # every kernel at the shapes of the block's largest round
     rows = results["radix_block"]["eager"]["max_rows"]
     cts = ctx.encrypt(gen, torch.randint(0, p.plaintext_modulus, (rows,), generator=gen,
                                          device=ctx.device))
     print(f"fhe_ml radix block: each kernel at {rows} rows against its plain version")
     at_rows = kernels_at_rows(cts, engine.fused_pack, gen, peaks, smi)
-    del sess, run, enc, cts
+    del sess, run, cts
 
     # the narrow-LUT block at gpt2's own 6-bit width
     g, _ = lower.lower_gpt2_block(4, QuantSpec(3, 0.25, 4), p.width, seed=1)
@@ -503,7 +527,238 @@ def fhe_ml_phase(ctx, engine, peaks: tuple, smi: str) -> dict:
         if noise >= budget:
             raise AssertionError(f"{what}: output noise {noise:.3e} over budget {budget:.3e}")
         results["narrow_block"][name] = obs
-    return {"runs": results, "kernels_radix_keys": at_rows}
+    inputs["narrow_block"] = {"prog": prog, "enc": enc}
+    return {"runs": results, "kernels_radix_keys": at_rows, "inputs": inputs}
+
+
+def canonical(outputs) -> list:
+    """Decrypted program outputs as plain lists, for comparison."""
+    import numpy as np
+    return [np.asarray(v).tolist() for v in outputs]
+
+
+def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
+               probe_round: int | None = None) -> dict:
+    """One wave through `Session(ctx, engine, backend="serve")`: started
+    paused, every job submitted, then resumed, so all requests share the
+    barrier from the first round.  The launch counts are set to 0 just
+    before `resume()` and read when the last request is done.  Times each
+    `_row_keys` call (after the device wait its host copy makes anyway),
+    and, at fused round `probe_round`, the round's wall between two
+    synchronisations and its inputs, for a traced replay.  Raises if a
+    request is not done within SERVE_TIMEOUT_S (a barrier that never
+    completes fails the phase instead of hanging it)."""
+    import torch
+    from repro_torch.api import Session
+    from repro_torch.kernels import _build
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve import scheduler as sched_mod
+    tel = Telemetry(trace=True)
+    sess = Session(ctx, engine, backend="serve", telemetry=tel, max_inflight=len(jobs),
+                   shards=shards, start_paused=True)
+    rt = sess.backend.runtime
+    handles = [sess.submit(j["prog"], j["enc"], client_id=j["client"]) for j in jobs]
+    engines = [s.engine for s in rt.shards]
+    key_ms, probe, calls = [], {}, [0]
+    real_keys = sched_mod._row_keys
+
+    def timed_keys(cts, polys):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keys = real_keys(cts, polys)
+        key_ms.append((time.perf_counter() - t0) * 1e3)
+        return keys
+
+    def probed(name, real):
+        def run(x, polys):
+            calls[0] += 1
+            if calls[0] != probe_round:
+                return real(x, polys)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(x, polys)
+            torch.cuda.synchronize()
+            probe.update(name=name, x=x, polys=polys, rows=int(x.shape[0]),
+                         wall_s=time.perf_counter() - t0, round=calls[0])
+            return out
+        return run
+
+    sched_mod._row_keys = timed_keys
+    for e in engines:
+        e.telemetry = tel
+    if probe_round is not None:
+        engine.lut_batch = probed("lut_batch", engine.lut_batch)
+        engine.lut_batch_small = probed("lut_batch_small", engine.lut_batch_small)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rt.resume()
+        outs = [h.wait(timeout=SERVE_TIMEOUT_S) for h in handles]
+        torch.cuda.synchronize()
+    finally:
+        sched_mod._row_keys = real_keys
+        for e in engines:
+            e.telemetry = None
+        engine.__dict__.pop("lut_batch", None)
+        engine.__dict__.pop("lut_batch_small", None)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rt.close()
+    decrypts = [canonical(sess.decrypt_outputs(j["prog"], [o[i] for i in j["prog"].graph.outputs]))
+                for j, o in zip(jobs, outs)]
+    rounds = [e.args for e in tel.recorder.events() if e.name == "fused_round"]
+    snap = tel.snapshot()["counters"]
+    stats = {k: snap[f"sched.{k}"] for k in ("fused_rounds", "logical_luts", "dispatched_luts",
+                                            "padded_luts", "dedup_hits", "ks_dedup_hits")}
+    stats["per_shard_rounds"] = [snap[f"serve.shard.{i}.fused_rounds"]
+                                 for i in range(len(rt.shards))]
+    return {"shards": shards, "decrypts": decrypts, "wall_s": wall, "launches": counts,
+            "peak_gb": peak / 1e9, "stats": stats, "rounds": rounds, "counters": snap,
+            "row_keys_ms": key_ms, "probe": probe, "runtime": rt,
+            "occupancy": [s.scheduler.mean_occupancy for s in rt.shards]}
+
+
+def serve_phase(ctx, engine, radix, fhe, peaks: tuple, smi: str) -> dict:
+    """Four clients served at once by one `ServeRuntime` on the main
+    path's gpt2 keys and engine, on encryptions the earlier phases
+    already decrypted to their oracles: (a) the radix GPT-2 block, (b) a
+    replay of a's ciphertexts, its dedup twin, (c) the narrow-LUT GPT-2
+    block, (d) the 32-bit quickstart program.  Every request must decrypt
+    to its oracle and to its eager run's values; every row of the twin
+    must ride its original (dedup hits >= 1,268); dedup must dispatch
+    fewer rows than were asked for; the fused rounds' padded rows must
+    sum to `padded_luts` and to the rows the engine ran; the launches must
+    be one keyswitch and n of each FFT and the MAC per fused round.  The
+    same wave on two shards on the one card must decrypt alike with both
+    shards' engines on one resident pack, its peak device memory less
+    than one pack above one shard's.  One mid-wave fused round is traced
+    under `torch.profiler`, and each kernel runs at the wave's largest
+    round against its plain version.  Prints the wave's wall and
+    requests per second beside the four programs' local walls, the
+    fused rounds and their rows, the dedup hit-rate and the cost of the
+    dedup keys (not gated: host-bound walls spread between machines)."""
+    import statistics as st
+    import torch
+    p = ctx.params
+    rb, nb = fhe["inputs"]["radix_block"], fhe["inputs"]["narrow_block"]
+    runs = fhe["runs"]
+    block = {"prog": rb["prog"], "enc": rb["enc"],
+             "oracle": [runs["radix_block"]["eager"]["oracle"]],
+             "eager": [runs["radix_block"]["eager"]["decrypt"]],
+             "local_wall_s": runs["radix_block"]["local"]["wall_s"]}
+    jobs = [dict(block, client="a"), dict(block, client="b"),
+            {"client": "c", "prog": nb["prog"], "enc": nb["enc"],
+             "oracle": [runs["narrow_block"]["eager"]["oracle"]],
+             "eager": [runs["narrow_block"]["eager"]["decrypt"]],
+             "local_wall_s": runs["narrow_block"]["local"]["wall_s"]},
+            {"client": "d", "prog": radix["inputs"]["prog"], "enc": radix["inputs"]["enc"],
+             "oracle": radix["results"]["eager"]["oracle"],
+             "eager": radix["results"]["eager"]["decrypt"],
+             "local_wall_s": radix["results"]["local"]["wall_s"]}]
+    one = serve_wave(ctx, engine, jobs, smi, probe_round=SERVE_PROBE_ROUND)
+    st1 = one["stats"]
+    rows = [r["padded"] for r in one["rounds"]]
+    dispatched = [r["dispatched"] for r in one["rounds"]]
+    local_sum = sum(j["local_wall_s"] for j in jobs)
+    keys_total = sum(one["row_keys_ms"])
+    print(f"serve wave (1 shard, 4 clients: radix GPT-2 block, its replay, narrow block, "
+          f"32-bit quickstart): wall {one['wall_s']:.3f} s, {len(jobs) / one['wall_s']:.3f} "
+          f"requests/s; the four programs' local walls sum to {local_sum:.3f} s "
+          f"({[round(j['local_wall_s'], 3) for j in jobs]}); fused rounds "
+          f"{st1['fused_rounds']}, rows per round (padded) min {min(rows)} mean "
+          f"{st.mean(rows):.2f} max {max(rows)}, dispatched min {min(dispatched)} mean "
+          f"{st.mean(dispatched):.2f} max {max(dispatched)}; LUTs logical "
+          f"{st1['logical_luts']} dispatched {st1['dispatched_luts']} padded "
+          f"{st1['padded_luts']}; dedup hits {st1['dedup_hits']} (hit-rate "
+          f"{st1['dedup_hits'] / st1['logical_luts']:.4f}), KS-dedup hits "
+          f"{st1['ks_dedup_hits']}; occupancy {one['occupancy'][0]:.3f}; _row_keys "
+          f"{keys_total:.2f} ms in {len(one['row_keys_ms'])} calls "
+          f"({keys_total / st1['fused_rounds']:.3f} ms per fused round, "
+          f"{st.mean(one['row_keys_ms']):.3f} ms per call); launches {one['launches']}; "
+          f"peak device memory {one['peak_gb']:.2f} GB on {smi}")
+    for j, got in zip(jobs, one["decrypts"]):
+        print(f"serve client {j['client']}: decrypt {got} oracle {j['oracle']} eager "
+              f"{j['eager']}")
+        if not got == canonical(j["oracle"]) == canonical(j["eager"]):
+            raise AssertionError(f"serve client {j['client']}: decrypts {got}, oracle "
+                                 f"{j['oracle']}, eager {j['eager']}")
+    if st1["dedup_hits"] < GPT2_RADIX_PBS:
+        raise AssertionError(f"serve: {st1['dedup_hits']} dedup hits, the twin alone "
+                             f"should give {GPT2_RADIX_PBS}")
+    if not st1["dispatched_luts"] < st1["logical_luts"]:
+        raise AssertionError(f"serve: dispatched {st1['dispatched_luts']} of "
+                             f"{st1['logical_luts']} LUTs")
+    engine_rows = one["counters"]["engine.pbs_rows"]
+    if not (sum(rows) == st1["padded_luts"] == engine_rows
+            and len(rows) == st1["fused_rounds"] == one["counters"]["engine.lut_batches"]):
+        raise AssertionError(f"serve: fused rounds' rows {sum(rows)} in {len(rows)} rounds, "
+                             f"padded_luts {st1['padded_luts']}, engine rows {engine_rows}")
+    nr = st1["fused_rounds"]
+    expect = {"keyswitch_mac": nr, "fft_forward": nr * p.n, "fft_inverse": nr * p.n,
+              "external_product_mac": nr * p.n}
+    if one["launches"] != expect:
+        raise AssertionError(f"serve: launches {one['launches']}, want {expect}")
+
+    # the mid-wave round, replayed under the profiler against its own wall
+    probe = one["probe"]
+    if not probe:
+        raise AssertionError(f"serve: the wave ran fewer than {SERVE_PROBE_ROUND} rounds")
+    print(f"serve: fused round {probe['round']} ({probe['name']}, {probe['rows']} rows) took "
+          f"{probe['wall_s']:.3f} s in the wave; its replay under the profiler:")
+    run = getattr(engine, probe["name"])
+    prof = profile_round(lambda: run(probe["x"], probe["polys"]), probe["wall_s"], smi,
+                         p.n, "profile_serve_round.json")
+    del prof["result"]
+
+    # each kernel at the shapes of the wave's largest round
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 3)
+    cts = ctx.encrypt(gen, torch.randint(0, p.plaintext_modulus, (max(rows),),
+                                         generator=gen, device=ctx.device))
+    print(f"serve: each kernel at the wave's largest round, {max(rows)} rows, against its "
+          "plain version")
+    at_rows = kernels_at_rows(cts, engine.fused_pack, gen, peaks, smi)
+    del cts, probe
+
+    two = serve_wave(ctx, engine, jobs, smi, shards=2)
+    packs = {id(s.engine.fused_pack) for s in two["runtime"].shards}
+    pack_gb = sum(engine.fused_pack.resident_key_bytes) / 1e9
+    print(f"serve wave on 2 shards: wall {two['wall_s']:.3f} s, fused rounds per shard "
+          f"{two['stats']['per_shard_rounds']}, dedup hits "
+          f"{two['stats']['dedup_hits']}, launches {two['launches']}, {len(packs)} resident "
+          f"pack(s), peak device memory {two['peak_gb']:.2f} GB (1 shard: "
+          f"{one['peak_gb']:.2f} GB, one pack {pack_gb:.2f} GB) on {smi}")
+    if two["decrypts"] != one["decrypts"]:
+        raise AssertionError(f"serve: 2 shards decrypt {two['decrypts']}, 1 shard "
+                             f"{one['decrypts']}")
+    if len(packs) != 1 or len(two["runtime"].shards) != 2:
+        raise AssertionError("serve: the two shards do not share one resident pack")
+    if not two["peak_gb"] - one["peak_gb"] < pack_gb:
+        raise AssertionError(f"serve: 2 shards peak {two['peak_gb']:.2f} GB, more than one "
+                             f"pack over 1 shard's {one['peak_gb']:.2f} GB")
+    if two["launches"]["keyswitch_mac"] != two["stats"]["fused_rounds"]:
+        raise AssertionError(f"serve: 2 shards launched {two['launches']} for "
+                             f"{two['stats']['fused_rounds']} fused rounds")
+    keep = ("wall_s", "launches", "peak_gb", "stats", "occupancy", "decrypts")
+    return {"clients": [j["client"] for j in jobs],
+            "one_shard": {**{k: one[k] for k in keep},
+                          "requests_per_s": len(jobs) / one["wall_s"],
+                          "local_walls_s": [j["local_wall_s"] for j in jobs],
+                          "local_walls_sum_s": local_sum,
+                          "rows_padded": {"min": min(rows), "mean": st.mean(rows),
+                                          "max": max(rows)},
+                          "rows_dispatched": {"min": min(dispatched),
+                                              "mean": st.mean(dispatched),
+                                              "max": max(dispatched)},
+                          "dedup_hit_rate": st1["dedup_hits"] / st1["logical_luts"],
+                          "row_keys_ms": {"total": keys_total, "calls": len(one["row_keys_ms"]),
+                                          "per_round": keys_total / st1["fused_rounds"],
+                                          "per_call": st.mean(one["row_keys_ms"])},
+                          "probe_round": {"round": SERVE_PROBE_ROUND, **prof}},
+            "two_shards": {k: two[k] for k in keep},
+            "pack_gb": pack_gb, "kernels": at_rows}
 
 
 def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
@@ -818,7 +1073,7 @@ def main() -> int:
 
     # -- the encrypted GPT-2 block, both lowering families, on one engine ------
     fhe = fhe_ml_phase(ctx, engine, peaks, smi)
-    print(json.dumps({"fhe_ml": fhe}))
+    print(json.dumps({"fhe_ml": {k: fhe[k] for k in ("runs", "kernels_radix_keys")}}))
 
     at_rows = kernels_at_rows(largest["cts"], pack, gen, peaks, smi)
     torch.cuda.synchronize()
@@ -846,6 +1101,10 @@ def main() -> int:
         "engines_alive": len(engines),
         "by_kernel": big["by_kernel"], "kernels": at_rows}}))
 
+    # -- the serving runtime: four concurrent clients on the main engine -------
+    served = serve_phase(ctx, engine, radix, fhe, peaks, smi)
+    print(json.dumps({"serve": served}))
+
     counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
     for row in kernels:
         key = counter.get(row["name"], row["name"])
@@ -862,6 +1121,12 @@ def main() -> int:
         if m is not None:       # the radix GPT-2 block's largest round, PBS level 2
             row.update({f"{k}_radix96": m[k] for k in ("max_abs_err", "ms", "ms_b2b",
                                                        "bound_ms", "bound_by", "library_ms")})
+        row["launches_serve"] = {"one_shard": served["one_shard"]["launches"][key],
+                                 "two_shards": served["two_shards"]["launches"][key]}
+        m = served["kernels"].get(row["name"])
+        if m is not None:       # the serve wave's largest fused round
+            row.update({f"{k}_serve": m[k] for k in ("rows", "max_abs_err", "ms", "ms_b2b",
+                                                     "bound_ms", "bound_by", "library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

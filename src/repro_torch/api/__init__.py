@@ -1,5 +1,5 @@
-"""The port's front door: one traced program contract for eager and
-in-process served FHE (the port of `repro.api`).
+"""The port's front door: one traced program contract for eager,
+in-process and served FHE (the port of `repro.api`).
 
     from repro_torch.api import Session, IntSpec
 
@@ -16,13 +16,13 @@ in-process served FHE (the port of `repro.api`).
             hand-lowered graphs (`repro_torch.fhe_ml`);
             encrypt/run/decrypt.
   backends  `EagerBackend` (direct IntegerContext + KS/ACC-dedup PBS),
-            `LocalBackend` (`serve.IrInterpreter`); "serve" is not
-            ported yet (ROADMAP.md, queue A, item 3) and raises
-            `NotImplementedError`.
+            `LocalBackend` (`serve.IrInterpreter`, optionally over a
+            private fused scheduler), `ServeBackend` (the multi-tenant
+            `serve.ServeRuntime`; `Session.submit` is its async path).
 """
 from repro_torch.api.backends import (Backend, EagerBackend, LocalBackend,  # noqa: F401
-                                      eval_linear_ct_op, eval_radix_vector,
-                                      make_backend)
+                                      ServeBackend, eval_linear_ct_op,
+                                      eval_radix_vector, make_backend)
 from repro_torch.api.session import Program, Session, trace_program  # noqa: F401
 from repro_torch.api.tracing import (EncryptedInt, EncryptedTensor,  # noqa: F401
                                      EncryptedValue, IntSpec, RawSpec, TensorSpec)

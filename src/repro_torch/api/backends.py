@@ -1,7 +1,7 @@
 """Pluggable execution backends behind the `Session` front door.
 
 The port of `repro.api.backends`.  One protocol —
-`Backend.execute(program, enc_inputs) -> outputs` — and two working
+`Backend.execute(program, enc_inputs) -> outputs` — and three
 implementations:
 
   EagerBackend   direct execution for debugging: `lut` nodes run the
@@ -9,20 +9,18 @@ implementations:
                  nodes run straight through `IntegerContext`.
   LocalBackend   the serving execution contract in-process:
                  `repro_torch.serve.IrInterpreter`, every bootstrap
-                 through `engine.lut_batch`.
+                 through `engine.lut_batch` (with `fused=True`, through
+                 a private `FusedLutScheduler`).
+  ServeBackend   submits through a `repro_torch.serve.ServeRuntime`:
+                 cross-request fused rounds, online dedup, admission
+                 control, fault retry.
 
-Both run every bootstrap through the session's `TaurusEngine`, so with
+All run every bootstrap through the session's `TaurusEngine`, so with
 `kernel_backend="fused"` every PBS round on the card runs the port's
 kernels.  (The reference's eager `lut` path calls its plain batch
 functions; the port's goes through `engine.keyswitch` and
 `engine.lut_batch_small`, the same KS-first split, bit-identical in the
 keyswitch and decrypt-identical after it.)
-
-`backend="serve"` and `LocalBackend(fused=True)` need the fused round
-scheduler and the serving runtime (`serve/scheduler.py`,
-`serve/runtime.py`), which are not ported yet (ROADMAP.md, queue A,
-item 3): they raise `NotImplementedError` rather than run on another
-backend.
 """
 from __future__ import annotations
 
@@ -36,11 +34,6 @@ from repro_torch.core import glwe, lwe, torus
 from repro_torch.core.engine import TaurusEngine
 from repro_torch.core.integer import IntegerContext, RadixCiphertext
 from repro_torch.core.params import TFHEParams
-
-_NOT_PORTED = ("the fused round scheduler and the serving runtime "
-               "(serve/scheduler.py, serve/runtime.py) are not ported yet "
-               "(ROADMAP.md, queue A, item 3)")
-
 
 @runtime_checkable
 class Backend(Protocol):
@@ -260,37 +253,94 @@ class EagerBackend:
 
 class LocalBackend:
     """The serving execution contract without the queue: a
-    `repro_torch.serve.IrInterpreter` over this process's engine.
-    `fused=True` (intra-request round fusion through the fused scheduler)
-    is not ported yet and raises `NotImplementedError`.
+    `repro_torch.serve.IrInterpreter` over this process's engine.  With
+    `fused=True` the engine is wrapped in a private `FusedLutScheduler`,
+    so the per-vector rounds of one program's tensor-level radix nodes
+    fuse into shared batches (intra-request fusion, no runtime needed).
     """
 
     name = "local"
 
     def __init__(self, ctx, engine=None, *, fused: bool = False,
                  telemetry=None):
-        if fused:
-            raise NotImplementedError(f"LocalBackend(fused=True): {_NOT_PORTED}")
         from repro_torch.serve.interpreter import IrInterpreter
+        from repro_torch.serve.scheduler import FusedLutScheduler
+        engine = _engine_for(ctx, engine)
         self.telemetry = telemetry
-        self.interp = IrInterpreter(ctx, _engine_for(ctx, engine),
-                                    telemetry=telemetry)
+        self.scheduler = (FusedLutScheduler(telemetry=telemetry)
+                          if fused else None)
+        eng = self.scheduler.proxy(engine) if fused else engine
+        self.interp = IrInterpreter(ctx, eng, telemetry=telemetry)
 
     def execute(self, program, enc_inputs: list) -> list:
         return self.interp.run_outputs(program.graph, enc_inputs)
 
 
-_BACKENDS = {"eager": EagerBackend, "local": LocalBackend}
+# ---------------------------------------------------------------------------
+# serve (multi-tenant runtime)
+# ---------------------------------------------------------------------------
+
+class ServeBackend:
+    """Submits programs through a `ServeRuntime`: the session's traffic
+    joins cross-request fused PBS rounds and online dedup, and a traced
+    program's tensor-level radix nodes flatten into per-vector rounds
+    that fuse intra-request (`IrInterpreter` vector fan-out).
+
+    Runtime keywords thread straight through — `Session(ctx,
+    backend="serve", shards=2, elastic=True, max_inflight=8)` builds a
+    sharded runtime exactly like calling `ServeRuntime` directly."""
+
+    name = "serve"
+
+    def __init__(self, ctx, engine=None, *, runtime=None,
+                 client_id: str = "session", **runtime_kw):
+        from repro_torch.serve.runtime import ServeRuntime
+        self._owns_runtime = runtime is None
+        self.runtime = runtime if runtime is not None \
+            else ServeRuntime(ctx, engine, **runtime_kw)
+        # the runtime's Telemetry (passed via runtime_kw or its default):
+        # `Session.telemetry` and `metrics()` read through this
+        self.telemetry = self.runtime.telemetry
+        self.client_id = client_id
+
+    def metrics(self) -> dict:
+        return self.runtime.metrics()
+
+    @property
+    def scheduler(self):
+        return self.runtime.scheduler
+
+    def submit(self, program, enc_inputs: list,
+               client_id: Optional[str] = None):
+        """Async path: returns the runtime's `RequestHandle`
+        (`handle.outputs()` joins)."""
+        return self.runtime.submit(program.graph, enc_inputs,
+                                   client_id=client_id or self.client_id)
+
+    def execute(self, program, enc_inputs: list) -> list:
+        return self.submit(program, enc_inputs).outputs()
+
+    def close(self) -> None:
+        if self._owns_runtime:
+            self.runtime.close()
+
+
+_BACKENDS = {"eager": EagerBackend, "local": LocalBackend,
+             "serve": ServeBackend}
 
 
 def make_backend(name: str, ctx, engine=None, *, kernel_backend=None, **kw):
-    """Construct a named backend ("eager" | "local") over the given key
-    material; extra keywords forward to the backend's constructor.
-    `kernel_backend="fused" | "reference"` selects the engine room when
-    no prebuilt engine is passed (see `repro_torch.core.engine`).
-    "serve" raises `NotImplementedError` until the runtime is ported."""
-    if name == "serve":
-        raise NotImplementedError(f"backend='serve': {_NOT_PORTED}")
+    """Construct a named backend ("eager" | "local" | "serve") over the
+    given key material; extra keywords forward to the backend's
+    constructor (e.g. `fused=True` for local, `max_inflight=8` or
+    `shards=2` for serve).  `kernel_backend="fused" | "reference"`
+    selects the engine room when no prebuilt engine is passed (see
+    `repro_torch.core.engine`).  Use it directly to share one backend
+    across sessions::
+
+        be = make_backend("serve", ctx, engine, max_inflight=4)
+        sess = Session(ctx, engine, backend=be)
+    """
     try:
         cls = _BACKENDS[name]
     except KeyError:

@@ -12,8 +12,9 @@ the same three-step shape:
 
 The traced `Program` is an ordinary `repro_torch.compiler.ir.Graph` plus
 the input/output specs needed to encrypt and decrypt.  Swapping
-`backend="eager" | "local"` changes WHERE the graph executes (direct
-`IntegerContext` or the serving IR interpreter), never WHAT it computes.
+`backend="eager" | "local" | "serve"` changes WHERE the graph executes
+(direct `IntegerContext`, the serving IR interpreter, or the multi-tenant
+`ServeRuntime`), never WHAT it computes.
 Randomness comes from one `torch.Generator`, drawn from in order, where
 the reference splits a JAX key per input and per integer.
 """
@@ -81,12 +82,14 @@ def trace_program(fn, in_specs, params=None) -> Program:
 
 
 class Session:
-    """One front door for eager and in-process served FHE execution.
+    """One front door for eager, in-process and served FHE execution.
 
-    backend: "eager" | "local", or any object implementing the `Backend`
-    protocol (`execute(program, enc_inputs) -> outputs`).  "serve" is not
-    ported yet and raises `NotImplementedError`.  Extra keyword arguments
-    are forwarded to the named backend's constructor.
+    backend: "eager" | "local" | "serve", or any object implementing the
+    `Backend` protocol (`execute(program, enc_inputs) -> outputs`).  Extra
+    keyword arguments are forwarded to the named backend's constructor
+    (e.g. `fused=True` for local, `max_inflight=8` or `shards=2` for
+    serve).  `with Session(...) as sess:` closes the backend (a serve
+    session's runtime) on exit.
 
     kernel_backend: "fused" | "reference" — which PBS engine room the
     session's `TaurusEngine` runs (see `repro_torch.core.engine`).  Only
@@ -199,6 +202,20 @@ class Session:
         """Execute on this session's backend; returns the output
         ciphertext tensors in `program.graph.outputs` order."""
         return self.backend.execute(program, enc_inputs)
+
+    def submit(self, program: Program, enc_inputs: list,
+               client_id: Optional[str] = None):
+        """Async submit (serve backend): returns the request handle,
+        whose `output_futures` resolve PER OUTPUT as the interpreter
+        materializes them — `handle.outputs()` still joins the whole
+        request.  client_id defaults to the backend's configured
+        identity."""
+        submit = getattr(self.backend, "submit", None)
+        if submit is None:
+            raise TypeError(
+                f"backend {getattr(self.backend, 'name', self.backend)!r} "
+                "is synchronous — use run(), or Session(backend='serve')")
+        return submit(program, enc_inputs, client_id=client_id)
 
     def __call__(self, program: Program, generator: torch.Generator,
                  *values) -> list:

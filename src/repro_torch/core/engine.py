@@ -28,6 +28,18 @@ I64 = torch.int64
 KERNEL_BACKENDS = ("fused", "reference")
 
 
+class ConfigError(ValueError):
+    """An unsupported engine/runtime configuration, rejected at
+    construction time (not at first `lut_batch`).
+
+    The port's engine runs on one device: `mesh=None` is its only
+    configuration.  The reference's SPMD mesh path (`mesh=` a JAX mesh)
+    is not ported, so any other mesh raises here.  The sharded
+    `ServeRuntime` never asks for one: a shard given several devices
+    gets a one-device engine on the first (`repro_torch.serve.shard`).
+    """
+
+
 def validate_lut_tables(cts: torch.Tensor, tables, params: TFHEParams) -> torch.Tensor:
     """Normalize/validate per-ciphertext integer LUT tables against a
     batch: broadcast a single (2^width,) table across the batch, reject
@@ -55,6 +67,8 @@ class TaurusEngine:
     params: TFHEParams
     bsk_f: torch.Tensor
     ksk: torch.Tensor
+    # the reference's SPMD mesh; only None (one device) is supported
+    mesh: Optional[object] = None
     batch_per_device: int = 12  # paper's round-robin depth (Fig. 13b)
     # optional telemetry (duck-typed: span/counter/histogram); None keeps
     # the hot path untouched
@@ -68,6 +82,12 @@ class TaurusEngine:
             raise ValueError(
                 f"kernel_backend must be one of {KERNEL_BACKENDS}, "
                 f"got {self.kernel_backend!r}")
+        if self.mesh is not None:
+            raise ConfigError(
+                "TaurusEngine(mesh=...) is not a supported configuration of "
+                "the port: its engine runs on one device (one card is one "
+                "cluster). Pass mesh=None and shard across engines with "
+                "ServeRuntime(shards=...) instead.")
         self.device = resolve_device(self.device)
         self.bsk_f = self.bsk_f.to(self.device)
         self.ksk = self.ksk.to(self.device)

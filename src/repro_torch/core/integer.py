@@ -244,7 +244,9 @@ def _pad_batch(b: int) -> int:
     of 32.  The reference pads so its jitted pbs_batch compiles for few
     shapes; the port has no jit but pads the same way, so the rounds it
     dispatches (`stats["dispatch_sizes"]`) are the reference's and its
-    kernels see the same few row counts."""
+    kernels see the same few row counts.  Under the fused serving
+    scheduler a request's rounds go unpadded and the scheduler pads the
+    fused batch (`IntegerContext.pad_batches`)."""
     if b <= 32:
         return 1 << max(4, (b - 1).bit_length())
     return -(-b // 32) * 32
@@ -269,6 +271,9 @@ class IntegerContext:
     dispatching every nonlinear round through `TaurusEngine.lut_batch`."""
     ctx: TFHEContext
     engine: TaurusEngine
+    # pad each round to `_pad_batch` rows; off under the fused scheduler,
+    # which pads the fused batch instead
+    pad_batches: bool = True
     # optional telemetry (duck-typed counter/histogram); every nonlinear
     # round publishes integer.* series into it when set
     telemetry: object = None
@@ -327,17 +332,19 @@ class IntegerContext:
     def _lut(self, cts: torch.Tensor, tables: np.ndarray) -> torch.Tensor:
         """One PBS batch: per-ciphertext integer tables -> refreshed cts.
 
-        Pads the batch to a quantized size (repeating real ciphertexts),
-        as the reference does, so the dispatched rounds match its."""
+        With `pad_batches`, pads the batch to a quantized size (repeating
+        real ciphertexts), as the reference does, so the dispatched rounds
+        match its."""
         b = int(cts.shape[0])
         tables = np.ascontiguousarray(np.asarray(tables, dtype=np.uint64))
         dispatch = cts
         dtables = tables
-        p = _pad_batch(b)
-        if p > b:
-            reps = -(-p // b)
-            dispatch = cts.repeat(reps, 1)[:p]
-            dtables = np.tile(tables, (reps, 1))[:p]
+        if self.pad_batches:
+            p = _pad_batch(b)
+            if p > b:
+                reps = -(-p // b)
+                dispatch = cts.repeat(reps, 1)[:p]
+                dtables = np.tile(tables, (reps, 1))[:p]
         out = self.engine.lut_batch(dispatch, self._polys(dtables))
         with self._stats_lock:
             self.stats["lut_batches"] += 1

@@ -13,9 +13,9 @@ multi-tenant runtime:
     registered with the shared scheduler, so the vectors of ONE request
     fuse with each other.
 
-The fused scheduler is not ported yet, so on a `TaurusEngine` the
-vectors run one after another on the calling thread.  A radix node's
-tensor has its digit vector on the LAST axis; each vector executes
+On a bare `TaurusEngine` the vectors run one after another on the
+calling thread.  A radix node's tensor has its digit vector on the LAST
+axis; each vector executes
 through `IntegerContext` (`repro_torch.api.backends.eval_radix_vector`,
 shared with the eager backend so the radix semantics has one
 definition).
@@ -40,9 +40,9 @@ class IrInterpreter:
     """Runs a compiled Graph on real ciphertexts via `engine.lut_batch`.
 
     `engine` is a TaurusEngine (default: one on the keys' device) or a
-    fused scheduler's engine proxy.  Every round is padded as
-    `IntegerContext` pads it (the reference leaves padding to its fused
-    scheduler, which is not ported yet).
+    `FusedEngineProxy`; with a proxy, per-round padding is left to the
+    fused scheduler (padding tiny per-request rounds would only dilute
+    the fused batch).  `pad_rounds` overrides that default.
 
     intra_fuse: with a fused engine, execute the V vectors of one
     tensor-level radix node on V concurrent threads (each holding its
@@ -61,6 +61,7 @@ class IrInterpreter:
     """
 
     def __init__(self, ctx, engine=None, *,
+                 pad_rounds: Optional[bool] = None,
                  intra_fuse: bool = True,
                  holds_slot: bool = False,
                  telemetry=None):
@@ -68,8 +69,11 @@ class IrInterpreter:
         self.engine = engine if engine is not None \
             else TaurusEngine.from_context(ctx, device=ctx.device)
         self.params = ctx.params
+        if pad_rounds is None:
+            pad_rounds = not getattr(self.engine, "fused", False)
         self.telemetry = telemetry
-        self.int_ctx = IntegerContext(ctx, self.engine, telemetry=telemetry)
+        self.int_ctx = IntegerContext(ctx, self.engine, pad_batches=pad_rounds,
+                                      telemetry=telemetry)
         self.intra_fuse = intra_fuse
         self.holds_slot = holds_slot
         self._poly_cache: dict = {}
@@ -93,12 +97,23 @@ class IrInterpreter:
                       b: Optional[torch.Tensor], sched,
                       max_val: Optional[int] = None) -> list:
         """Per-vector rounds on concurrent threads sharing `sched`: the
-        scheduler barrier fuses them like independent requests."""
+        scheduler barrier fuses them like independent requests.
+
+        With `holds_slot`, the last worker to finish hands its slot back
+        to the request thread instead of releasing it (the reference
+        releases it and the request thread registers again after the
+        join).  In between, the barrier would count one slot fewer for
+        this request, and a round of the other requests could dispatch
+        without this request's next round, depending on which thread
+        runs first; with the hand-off the fused rounds do not depend on
+        thread timing."""
         V = int(a.shape[0])
         outs: list = [None] * V
         errors: list = []
         nt = min(V, self.MAX_FANOUT)
         slices = [range(w, V, nt) for w in range(nt)]
+        handoff = {"left": nt, "kept": False}
+        lock = threading.Lock()
 
         def work(idx) -> None:
             try:
@@ -109,7 +124,12 @@ class IrInterpreter:
             except BaseException as err:  # noqa: BLE001 — re-raised below
                 errors.append(err)
             finally:
-                sched.unregister()
+                with lock:
+                    handoff["left"] -= 1
+                    keep = self.holds_slot and handoff["left"] == 0
+                    handoff["kept"] = keep
+                if not keep:
+                    sched.unregister()
 
         threads = [threading.Thread(target=work, args=(idx,), daemon=True)
                    for idx in slices]
@@ -126,6 +146,8 @@ class IrInterpreter:
                 t.start()
                 started += 1
         finally:
+            with lock:
+                handoff["left"] -= len(threads) - started
             for _ in range(len(threads) - started):
                 sched.unregister()
             # park the request's own slot while joining (this thread
@@ -136,7 +158,7 @@ class IrInterpreter:
                 for t in threads[:started]:
                     t.join()
             finally:
-                if self.holds_slot:
+                if self.holds_slot and not handoff["kept"]:
                     sched.register()
         if errors:
             raise errors[0]

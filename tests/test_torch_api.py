@@ -405,19 +405,30 @@ def test_interpreter_vector_fanout_under_threads(tctx_2bit):
     assert sorted(stats["dispatch_sizes"]) == sorted(ser["dispatch_sizes"])
 
 
-# --- what is not ported yet ------------------------------------------------------
+# --- backend construction ------------------------------------------------------
 
-def test_serve_and_fused_local_are_not_ported(tctx_2bit):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        api.Session(tctx_2bit, backend="serve")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        make_backend("serve", tctx_2bit)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        LocalBackend(tctx_2bit, fused=True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        api.Session(tctx_2bit, backend="local", fused=True)
+def test_make_backend_names_and_errors(tctx_2bit):
+    """Every named backend builds over a CPU context's keys; `serve`
+    owns a runtime that `Session`'s context manager closes; an unknown
+    name and a kernel_backend beside a prebuilt engine are refused."""
+    from repro_torch.serve import RuntimeClosedError, ServeRuntime
+    local = make_backend("local", tctx_2bit, fused=True)
+    assert isinstance(local, LocalBackend) and local.scheduler is not None
+    assert make_backend("local", tctx_2bit).scheduler is None
+    with api.Session(tctx_2bit, backend="serve", max_inflight=2) as sess:
+        be = sess.backend
+        assert isinstance(be, api.ServeBackend) and isinstance(be.runtime, ServeRuntime)
+        assert be.runtime.engine is sess.engine and be.runtime.max_inflight == 2
+        assert sess.metrics() == be.runtime.metrics()
+    with pytest.raises(RuntimeClosedError):
+        be.runtime.submit(None, [])
+    with pytest.raises(TypeError, match="synchronous"):
+        api.Session(tctx_2bit, backend="eager").submit(None, [])
     with pytest.raises(ValueError, match="unknown backend"):
         make_backend("remote", tctx_2bit)
+    with pytest.raises(TypeError, match="kernel_backend"):
+        make_backend("serve", tctx_2bit, local.interp.engine._engine,
+                     kernel_backend="fused")
 
 
 def test_session_kernel_backend_rejects_engine_conflict(tctx_2bit):

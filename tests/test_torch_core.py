@@ -257,4 +257,4 @@ def test_port_imports_neither_jax_nor_repro():
                          cwd=root, env={"PYTHONPATH": f"{root / 'src'}:{root}",
                                         "PATH": "/usr/bin:/bin"}, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 37
+    assert int(res.stdout.split()[0]) >= 56

@@ -11,9 +11,9 @@ digits against the key's limb operand), the FFTs within 1e-12 of the
 output scale, the MAC within 1e-9 relative, and the torus output of
 `fft_inverse_torus` within 1e-12 of the float inverse's scale plus one
 (the f64 transform's rounding, then one torus unit);
-PBS rounds, radix integer ops and the `fhe_ml` blocks decrypt exactly
-to their oracles; the quantize-to-radix MLP's floats stay within its
-`tol_fn`.
+PBS rounds, radix integer ops, the `fhe_ml` blocks and served waves
+decrypt exactly to their oracles (a wave to its programs' eager runs);
+the quantize-to-radix MLP's floats stay within its `tol_fn`.
 """
 import pytest
 
@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.api import Session  # noqa: E402
+from repro_torch.api import IntSpec, Session  # noqa: E402
 from repro_torch.compiler.ir import radix_round_plan  # noqa: E402
 from repro_torch.core.engine import TaurusEngine  # noqa: E402
 from repro_torch.core.integer import IntegerContext  # noqa: E402
@@ -267,3 +267,108 @@ def test_quantize_to_radix_mlp_on_the_card(int_ctx, backend):
     yhat = quantize.dequantize_radix(
         got, quantize.RadixQuantSpec(8, 2, rq.scale * meta["out_scale_mul"]))
     assert np.all(np.abs(yhat - meta["float_fn"](xf)) <= meta["tol_fn"](rq))
+
+
+# --- the serving runtime on the card ----------------------------------------------
+
+@pytest.fixture(scope="module")
+def serve_jobs(ctx_6bit):
+    """Two programs on the 6-bit keys, encrypted once, with their eager
+    decrypts: the narrow GPT-2 block and the quickstart program on 16-bit
+    integers of 2-bit digits."""
+    ctx, gen = ctx_6bit
+    sess = Session(ctx, backend="eager")
+    g, _ = lower.lower_gpt2_block(4, QuantSpec(3, 0.25, 4), 6, seed=1)
+    narrow = sess.compile(g)
+    quick = sess.trace(lambda a, b: ((a * b).relu(), a < b),
+                       IntSpec(16, msg_bits=2), IntSpec(16, msg_bits=2))
+    q = np.random.default_rng(3).integers(0, 8, (4,))
+    jobs = [("narrow", narrow, sess.encrypt_inputs(gen, [q], narrow)),
+            ("quick", quick, sess.encrypt_inputs(gen, [0x1234, 0x0567], quick))]
+    eager = [plain(sess.decrypt_outputs(p, sess.run(p, enc))) for _, p, enc in jobs]
+    prod = (0x1234 * 0x0567) % (1 << 16)
+    assert eager[0] == plain([interpret(g, [q], 6)[g.outputs[0]]])
+    assert eager[1] == [prod if prod < 1 << 15 else 0, [0]]
+    return sess, jobs, eager
+
+
+def plain(vals) -> list:
+    return [np.asarray(v).tolist() for v in vals]
+
+
+def serve_on_card(ctx, jobs, **kw):
+    """One paused-then-resumed wave through Session(backend="serve");
+    returns the session, the decrypts and the wave's launch counts."""
+    sess = Session(ctx, backend="serve", max_inflight=len(jobs), start_paused=True, **kw)
+    handles = [sess.submit(p, enc, client_id=c) for c, p, enc in jobs]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sess.backend.runtime.resume()
+    outs = [h.wait(timeout=600) for h in handles]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    got = [plain(sess.decrypt_outputs(p, [o[i] for i in p.graph.outputs]))
+           for (_, p, _), o in zip(jobs, outs)]
+    sess.close()
+    return sess, got, counts
+
+
+def test_served_wave_on_the_card(ctx_6bit, serve_jobs):
+    """Both programs served concurrently on the card decrypt as eager
+    did; every fused round is one keyswitch launch and n of each FFT and
+    the MAC."""
+    ctx, _ = ctx_6bit
+    _, jobs, eager = serve_jobs
+    sess, got, counts = serve_on_card(ctx, jobs)
+    assert got == eager
+    st = sess.backend.scheduler.stats
+    n, rounds = ctx.params.n, st["fused_rounds"]
+    assert 0 < rounds < st["logical_luts"] and st["padded_luts"] >= st["dispatched_luts"]
+    assert counts == {"keyswitch_mac": rounds, "fft_forward": rounds * n,
+                      "fft_inverse": rounds * n, "external_product_mac": rounds * n}
+
+
+def test_fault_retry_on_the_card(ctx_6bit, serve_jobs):
+    """A fused round that raises on the card reaches every request in it;
+    each retries through the fault layer and still decrypts as eager."""
+    from repro_torch.runtime import FaultConfig
+    ctx, _ = ctx_6bit
+    _, jobs, eager = serve_jobs
+    sess = Session(ctx, backend="serve", max_inflight=2, start_paused=True,
+                   fault=FaultConfig(max_retries=1))
+    engine, calls = sess.engine, {"n": 0}
+
+    def poison(real):
+        def run(cts, polys):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("poisoned round")
+            return real(cts, polys)
+        return run
+
+    engine.lut_batch = poison(engine.lut_batch)
+    engine.lut_batch_small = poison(engine.lut_batch_small)
+    handles = [sess.submit(p, enc, client_id=c) for c, p, enc in jobs]
+    sess.backend.runtime.resume()
+    outs = [h.wait(timeout=600) for h in handles]
+    assert [h.retries for h in handles] == [1, 1]
+    got = [plain(sess.decrypt_outputs(p, [o[i] for i in p.graph.outputs]))
+           for (_, p, _), o in zip(jobs, outs)]
+    assert got == eager
+    sess.close()
+
+
+def test_two_shards_share_one_pack_on_the_card(ctx_6bit, serve_jobs):
+    """shards=2 on one card: one request on each shard, decrypts equal to
+    shards=1, and both shards' engines read one resident pack."""
+    ctx, _ = ctx_6bit
+    _, jobs, eager = serve_jobs
+    sess, got, counts = serve_on_card(ctx, jobs, shards=2)
+    shards = sess.backend.runtime.shards
+    assert got == eager
+    assert shards[0].engine is not shards[1].engine
+    assert shards[0].engine.fused_pack is shards[1].engine.fused_pack
+    c = sess.backend.runtime.metrics()["counters"]
+    per_shard = [c[f"serve.shard.{i}.fused_rounds"] for i in (0, 1)]
+    assert min(per_shard) > 0 and sum(per_shard) == c["sched.fused_rounds"]
+    assert counts["keyswitch_mac"] == c["sched.fused_rounds"]

@@ -418,11 +418,12 @@ def jax_mlp_radix(ctx_4bit, engine_4bit):
     return xf, q, enc, want
 
 
-@pytest.mark.parametrize("backend", ["eager", "local"])
+@pytest.mark.parametrize("backend", ["eager", "local", "serve"])
 def test_quantize_to_radix_mlp_roundtrip(tctx_4bit, jax_mlp_radix, backend):
     """quantize -> encrypt -> radix linear/relu -> decrypt -> dequantize:
     decrypts equal JAX's, every output digit's noise is inside the budget
-    1/2^(width+2), and the floats are within `tol_fn` of the float model."""
+    1/2^(width+2), and the floats are within `tol_fn` of the float model.
+    `serve` submits through the multi-tenant `ServeRuntime`."""
     xf, q, enc, want = jax_mlp_radix
     g, meta = _mlp_radix(lower, quantize)
     rq = quantize.calibrate_radix(xf, BITS, 2, qmax=meta["input_qmax"])
