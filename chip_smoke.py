@@ -76,11 +76,27 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    fused round is traced (`build/profile_serve_round.json`), each kernel
    runs at the wave's largest round against its plain version, and the
    same wave on two shards must decrypt alike on one resident pack with
-   peak memory less than one pack above one shard's.
+   peak memory less than one pack above one shard's;
+9. the paper's no-key-reuse baseline on the main path's keys and pack:
+   B fresh ciphertexts through `lut_batch` once and `lut_batch_xpu` (B
+   one-row rounds, the BSK streamed per ciphertext) once, both decrypting
+   to their tables with launches (1, n, n, n) and B x (1, n, n, n); each
+   call replayed under `torch.profiler` (device busy, idle share), the
+   ratios of the walls and of the busy times, beside the per-round
+   traffic model and `launch.pbs_dryrun`'s bound per PBS;
+10. seeded traffic: `repro_torch.sim.suite.run_suite` on the main path's
+   keys and engine (five scenarios of 12 s, rates anchored to the
+   measured capacity): every DONE payload must decrypt to its oracle,
+   the virtual runner's reports must repeat exactly, every scenario's
+   outcomes must add up to its requests, records and (open loop) arrival
+   plan, and the launches must be the engine's rounds x (1, n, n, n).
+   The SLO verdicts follow the card's speed, so they are printed beside
+   each scenario's expectation, not enforced.
 
 Prints the card, the build time, a line per phase, a `{"cmux_accuracy":
-...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}`, a `{"serve": ...}` and a
-`{"kernels": ...}` JSON line and, last,
+...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}`, a `{"serve": ...}`, an
+`{"xpu": ...}`, a `{"sim": ...}` and a `{"kernels": ...}` JSON line and,
+last,
 `{"ok": true, "device": {...}}`.  Any failure raises and exits nonzero.
 Needs CUDA; imports nothing of JAX.
 """
@@ -120,19 +136,12 @@ STEP_ERROR_RATIO = 1.25
 # phase; the fused round traced under the profiler (mid-wave)
 SERVE_TIMEOUT_S = 600
 SERVE_PROBE_ROUND = 20
-
-# Data-sheet peaks by card (NVIDIA H100 data sheet, dense): memory bytes/s,
-# FP64 FLOP/s (tensor cores), int8 tensor-core OP/s.  Matched on the name
-# nvidia-smi reports.
-PEAKS = {"H100 PCIe": (2.0e12, 51.2e12, 1513e12), "H100 NVL": (3.9e12, 60e12, 1671e12),
-         "H100": (3.35e12, 67e12, 1979e12)}
-
-
-def card_peaks(name: str) -> tuple[float, float, float]:
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return peaks
-    raise RuntimeError(f"no data-sheet peaks for {name!r}")
+# the sim phase: the suite's virtual seconds per scenario, and the phase's
+# own time limit (its overload scenario ends through close(drain=False))
+SIM_DURATION_S = 12.0
+SIM_TIMEOUT_S = 600
+# The card's data-sheet peaks come from repro_torch.launch.roofline.PEAKS:
+# memory bytes/s, FP64 FLOP/s (tensor cores), int8 tensor-core OP/s.
 
 
 def cuda_ms(fn, reps: int = REPEATS) -> float:
@@ -180,11 +189,12 @@ def nbytes(*ts) -> int:
 
 
 def profile_round(run, untraced_s: float, smi: str, steps: int,
-                  trace: str = "profile_round.json") -> dict:
+                  trace: str = "profile_round.json", other: int = 200) -> dict:
     """Trace one call of `run` and print where the device time goes.
-    Raises if the round holds more than 3 device events per CMux step
-    (forward, MAC, inverse) plus 200 for the rest of the round.  Returns
-    the call's result and the device busy ms, idle share and ms by kernel."""
+    Raises if the call holds more than 3 device events per CMux step
+    (forward, MAC, inverse) plus `other` for the rest of its rounds.
+    Returns the call's result and the device busy ms, idle share and ms
+    by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -207,9 +217,9 @@ def profile_round(run, untraced_s: float, smi: str, steps: int,
     busy = sum(v[1] for v in by_name.values())
     print(f"profile: {len(events)} device events per round, "
           f"{len(events) / steps:.2f} per CMux step ({steps} steps)")
-    if len(events) > 3 * steps + 200:
+    if len(events) > 3 * steps + other:
         raise AssertionError(f"profile: {len(events)} device events in a round, more "
-                             f"than 3 per CMux step + 200 = {3 * steps + 200}")
+                             f"than 3 per CMux step + {other} = {3 * steps + other}")
     print(f"profile: device busy {busy:.1f} ms per round ({len(events)} device "
           f"events; traced round {wall:.3f} s wall), idle share "
           f"{1 - busy / (untraced_s * 1e3):.3f} of the untraced round's "
@@ -761,6 +771,173 @@ def serve_phase(ctx, engine, radix, fhe, peaks: tuple, smi: str) -> dict:
             "pack_gb": pack_gb, "kernels": at_rows}
 
 
+def xpu_phase(ctx, engine, peaks, smi: str) -> dict:
+    """The paper's no-key-reuse baseline against the batched round, on the
+    main path's gpt2 keys and resident pack: B fresh ciphertexts under B
+    random tables through `lut_batch` once and `lut_batch_xpu` (B one-row
+    rounds, so the BSK streams B times) once.  Both must decrypt to the
+    tables and to each other; the launches must be (1, n, n, n) for the
+    batched round and B x (1, n, n, n) for the XPU pass.  Each call is
+    replayed once under `torch.profiler` for its device busy time and idle
+    share against its untraced wall; the per-round traffic model and the
+    dry run's bound per PBS on the card's peaks are printed beside them.
+    Then each kernel runs at the XPU pass's shapes (one row) against its
+    plain version."""
+    import torch
+    from repro_torch.core import glwe
+    from repro_torch.kernels import _build
+    from repro_torch.launch import pbs_dryrun
+    from repro_torch.launch.roofline import pbs_round_model
+    p = ctx.params
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 4)
+    msgs = torch.randint(0, p.plaintext_modulus, (B,), generator=gen, device=ctx.device)
+    cts = ctx.encrypt(gen, msgs)
+    rng = torch.Generator().manual_seed(SEED + 4)
+    tables = torch.stack([torch.randperm(p.plaintext_modulus, generator=rng)
+                          for _ in range(B)])
+    polys = glwe.make_lut_polys_cached(tables, p, device=ctx.device)
+    want = tables[torch.arange(B), msgs.cpu()].tolist()
+    per_round = {"keyswitch_mac": 1, "fft_forward": p.n, "fft_inverse": p.n,
+                 "external_product_mac": p.n}
+    runs = {}
+    for name, run in (("batched", lambda: engine.lut_batch(cts, polys)),
+                      ("xpu", lambda: engine.lut_batch_xpu(cts, polys))):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        refreshed = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        got = ctx.decrypt(refreshed).cpu().tolist()
+        rounds = 1 if name == "batched" else B
+        expect = {k: rounds * v for k, v in per_round.items()}
+        print(f"xpu phase, {name}: {B} PBS in {rounds} round(s), wall {wall:.3f} s, "
+              f"launches {counts}; decrypt {got} want {want} on {smi}")
+        if got != want:
+            raise AssertionError(f"xpu phase, {name}: decrypts {got}, tables give {want}")
+        if counts != expect:
+            raise AssertionError(f"xpu phase, {name}: launches {counts}, want {expect}")
+        prof = profile_round(run, wall, smi, rounds * p.n, f"profile_xpu_{name}.json",
+                             other=200 * rounds)
+        del prof["result"]
+        runs[name] = {"wall_s": wall, "launches": counts, "decrypt": got, **prof}
+    bat, xpu = runs["batched"], runs["xpu"]
+    model = pbs_round_model(p, B, peaks)
+    dry = {r["variant"]: r for r in pbs_dryrun.run(p.name, B, peaks)}
+    bound = {k: r["per_pbs_bound_ms"] for k, r in dry.items()}
+    out = {"rows": B, "params": p.name, "tables_decrypt": want, "runs": runs,
+           "wall_ratio": xpu["wall_s"] / bat["wall_s"],
+           "busy_ratio": xpu["busy_ms"] / bat["busy_ms"],
+           "model": {"fused_bytes": model.fused_bytes, "unfused_bytes": model.unfused_bytes,
+                     "reuse_factor": model.reuse_factor, "t_memory_s": model.t_memory},
+           "per_pbs_bound_ms": bound,
+           "per_pbs_bound_major_ms": {k: r["per_pbs_bound_major_ms"] for k, r in dry.items()}}
+    print(f"xpu phase: XPU / batched wall {xpu['wall_s']:.3f} / {bat['wall_s']:.3f} s = "
+          f"{out['wall_ratio']:.2f}x, device busy {xpu['busy_ms']:.1f} / {bat['busy_ms']:.1f} "
+          f"ms = {out['busy_ratio']:.2f}x, idle share {xpu['idle_share']:.3f} / "
+          f"{bat['idle_share']:.3f}; model at B={B}: fused {model.fused_bytes} B, unfused "
+          f"{model.unfused_bytes} B, reuse factor {model.reuse_factor:.3f}; dry-run bound per "
+          f"PBS {bound['taurus-batched']:.4f} ms batched, {bound['xpu-per-ct']:.4f} ms per-ct "
+          f"on {smi}")
+    print("xpu phase: each kernel at the XPU pass's one-row rounds, against its plain "
+          "version")
+    out["kernels_1row"] = kernels_at_rows(cts[:1], engine.fused_pack, gen, peaks, smi)
+    return out
+
+
+def sim_phase(ctx, engine, peaks, smi: str) -> dict:
+    """`repro_torch.sim.suite.run_suite` on the main path's gpt2 keys and
+    engine (8-bit integers of 2-bit digits, max_inflight 4, the measured
+    capacity anchor, SIM_DURATION_S virtual seconds per scenario), run on a
+    thread of its own under SIM_TIMEOUT_S.  The launch counts are set to 0
+    just before the suite and read just after.  Hard checks: every DONE
+    payload decrypts to its oracle (the suite raises otherwise), the
+    virtual runner's reports are identical, every scenario's outcome
+    tallies sum to its requests and to its records (an open-loop
+    scenario's to its arrival plan), and the kernels launched equal the
+    engine's PBS rounds x (1, n, n, n).  The SLO verdicts follow the card's
+    speed: they are printed beside each scenario's expectation and not
+    enforced (the port's benchmark bounds them later).  Then each kernel
+    runs at the shapes of the phase's largest round against its plain
+    version."""
+    import threading
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.obs import Telemetry
+    from repro_torch.sim import arrival_plan, standard_suite, suite
+    p = ctx.params
+    tel = engine.telemetry = Telemetry()
+    box = {}
+
+    def work():
+        try:
+            box["result"] = suite.run_suite(ctx, engine, duration_s=SIM_DURATION_S)
+        except Exception as e:          # re-raised on the main thread below
+            box["error"] = e
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=work, daemon=True)
+    worker.start()
+    worker.join(SIM_TIMEOUT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    engine.telemetry = None
+    if worker.is_alive():
+        raise AssertionError(f"sim: the suite did not finish within {SIM_TIMEOUT_S} s")
+    if "error" in box:
+        raise box["error"]
+    res = box["result"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rounds = tel.snapshot()["counters"]["engine.lut_batches"]
+    expect = {"keyswitch_mac": rounds, "fft_forward": rounds * p.n,
+              "fft_inverse": rounds * p.n, "external_product_mac": rounds * p.n}
+    print(f"sim: capacity anchor {res['capacity_rps']:.4f} requests/s; {rounds} engine PBS "
+          f"rounds, launches {counts}; phase wall {wall:.3f} s; peak device memory "
+          f"{peak:.2f} GB on {smi}")
+    scenarios = standard_suite(capacity_rps=res["capacity_rps"], duration_s=SIM_DURATION_S)
+    for sc, row in zip(scenarios, res["rows"]):
+        print(f"sim scenario {row['scenario']}: requests {row['requests']} done "
+              f"{row['done']} timeout {row['timeout']} abandoned {row['abandoned']} failed "
+              f"{row['failed']}; p50 {row['p50_s']} s, p99 {row['p99_s']} s, queue-wait p99 "
+              f"{row['queue_wait_p99_s']} s; goodput {row['goodput_rps']} requests/s; SLO "
+              f"{'PASS' if row['slo_ok'] else 'FAIL'}, expected "
+              f"{'PASS' if row['expect_ok'] else 'FAIL'}; wall {row['wall_s']:.3f} s on {smi}")
+        tally = row["done"] + row["timeout"] + row["abandoned"] + row["failed"]
+        if not tally == row["requests"] == row["records"]:
+            raise AssertionError(f"sim {row['scenario']}: outcomes sum to {tally}, "
+                                 f"{row['requests']} requests, {row['records']} records")
+        if sc.arrival.open_loop:
+            plan = arrival_plan(sc.arrival, sc.population, sc.duration_s, sc.seed)
+            if len(plan) != row["records"]:
+                raise AssertionError(f"sim {row['scenario']}: {row['records']} records for "
+                                     f"{len(plan)} planned arrivals")
+        if row["payloads_ok"] != row["done"]:
+            raise AssertionError(f"sim {row['scenario']}: {row['payloads_ok']} of "
+                                 f"{row['done']} DONE payloads decrypt to their oracle")
+    if not (res["virtual_deterministic"] and all(r["virtual_deterministic"]
+                                                 for r in res["rows"])):
+        raise AssertionError("sim: the virtual runner's reports differ between two runs")
+    if rounds == 0 or counts != expect:
+        raise AssertionError(f"sim: launches {counts} for {rounds} engine rounds, want "
+                             f"{expect}")
+    largest = int(tel.snapshot()["histograms"]["engine.lut_batch_rows"]["max"])
+    gen = torch.Generator(device=ctx.device).manual_seed(SEED + 5)
+    cts = ctx.encrypt(gen, torch.randint(0, p.plaintext_modulus, (largest,), generator=gen,
+                                         device=ctx.device))
+    print(f"sim: each kernel at the phase's largest round, {largest} rows, against its "
+          "plain version")
+    at_rows = kernels_at_rows(cts, engine.fused_pack, gen, peaks, smi)
+    return {"capacity_rps": res["capacity_rps"], "duration_s": SIM_DURATION_S,
+            "rows": res["rows"], "engine_rounds": rounds, "launches": counts,
+            "wall_s": wall, "peak_gb": peak, "largest_round_rows": largest,
+            "kernels": at_rows}
+
+
 def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
     """Each kernel on the shapes a round of `cts.shape[0]` rows gives it,
     against its plain version, timed one call at a time and back to
@@ -848,6 +1025,7 @@ def main() -> int:
     from repro_torch.kernels import _build, external_product as ep, fourstep_fft as ff
     from repro_torch.kernels import keyswitch as ks
     from repro_torch.kernels.cmux_accuracy import step_errors
+    from repro_torch.launch.roofline import card_peaks
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1105,6 +1283,12 @@ def main() -> int:
     served = serve_phase(ctx, engine, radix, fhe, peaks, smi)
     print(json.dumps({"serve": served}))
 
+    # -- the no-key-reuse baseline and seeded traffic, on the main engine -----
+    xpu = xpu_phase(ctx, engine, peaks, smi)
+    print(json.dumps({"xpu": xpu}))
+    simmed = sim_phase(ctx, engine, peaks, smi)
+    print(json.dumps({"sim": simmed}))
+
     counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
     for row in kernels:
         key = counter.get(row["name"], row["name"])
@@ -1127,6 +1311,14 @@ def main() -> int:
         if m is not None:       # the serve wave's largest fused round
             row.update({f"{k}_serve": m[k] for k in ("rows", "max_abs_err", "ms", "ms_b2b",
                                                      "bound_ms", "bound_by", "library_ms")})
+        row["launches_xpu"] = {name: r["launches"][key] for name, r in xpu["runs"].items()}
+        row["launches_sim"] = simmed["launches"][key]
+        for tag, at in (("xpu1", xpu["kernels_1row"]), ("sim", simmed["kernels"])):
+            m = at.get(row["name"])
+            if m is not None:   # the XPU pass's one-row rounds; the sim's largest
+                row.update({f"{k}_{tag}": m[k] for k in ("rows", "max_abs_err", "ms",
+                                                         "ms_b2b", "bound_ms", "bound_by",
+                                                         "library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

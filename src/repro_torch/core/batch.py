@@ -75,3 +75,14 @@ def pbs_batch(big_cts: torch.Tensor, lut_polys: torch.Tensor,
     """Batch of full PBS ops: (B, k*N+1) + (B, N) LUTs -> (B, k*N+1)."""
     return pbs_batch_small(keyswitch_batch(big_cts, ksk, params), lut_polys,
                            bsk_f, params)
+
+
+def pbs_unbatched_loop(big_cts: torch.Tensor, lut_polys: torch.Tensor,
+                       bsk_f: torch.Tensor, ksk: torch.Tensor,
+                       params: TFHEParams) -> torch.Tensor:
+    """XPU-style baseline: process ciphertexts one at a time (no BSK
+    reuse across ciphertexts) through `core.pbs.pbs`.  Same math, B x the
+    BSK traffic — the paper's Table IV comparison."""
+    from repro_torch.core import pbs as pbs_mod
+    return torch.stack([pbs_mod.pbs(ct, lut, bsk_f, ksk, params)
+                        for ct, lut in zip(big_cts, lut_polys)])

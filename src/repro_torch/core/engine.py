@@ -211,6 +211,30 @@ class TaurusEngine:
         return self.lut_batch(cts, glwe.make_lut_polys_cached(
             tables, self.params, device=self.device))
 
+    def lut_batch_xpu(self, cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
+        """Morphling-XPU-style baseline: no cross-ciphertext BSK reuse.
+
+        The fused backend runs each row as its own one-row round (one
+        keyswitch launch and n of each FFT and the MAC per ciphertext, so
+        the BSK streams once per ciphertext); the reference backend runs
+        `batch.pbs_unbatched_loop`.  The JAX engine always takes its plain
+        loop: following `kernel_backend` makes the comparison on the card
+        one of batching, not of kernels against plain PyTorch."""
+        B = cts.shape[0]
+        if lut_polys.shape[0] != B:
+            raise ValueError(
+                f"lut_batch_xpu: {B} ciphertexts but {lut_polys.shape[0]} LUT "
+                f"polynomials — counts must match per batch row")
+        cts, lut_polys = cts.to(self.device), lut_polys.to(self.device)
+        if self.kernel_backend == "fused":
+            pack = self.fused_pack
+            run = lambda: torch.cat([pack.pbs_batch(cts[i:i + 1], lut_polys[i:i + 1])
+                                     for i in range(B)])
+        else:
+            run = lambda: batch_mod.pbs_unbatched_loop(cts, lut_polys, self.bsk_f,
+                                                       self.ksk, self.params)
+        return self._observe("lut_batch_xpu", B, run)
+
     @classmethod
     def from_context(cls, ctx, **kw) -> "TaurusEngine":
         return cls(ctx.params, ctx.bsk_f, ctx.ksk, **kw)

@@ -372,3 +372,60 @@ def test_two_shards_share_one_pack_on_the_card(ctx_6bit, serve_jobs):
     per_shard = [c[f"serve.shard.{i}.fused_rounds"] for i in (0, 1)]
     assert min(per_shard) > 0 and sum(per_shard) == c["sched.fused_rounds"]
     assert counts["keyswitch_mac"] == c["sched.fused_rounds"]
+
+
+# --- the XPU baseline and the traffic simulator on the card ---------------------
+
+@pytest.mark.parametrize("p", [TEST_PARAMS, TEST_PARAMS_K2], ids=lambda p: p.name)
+def test_lut_batch_xpu_on_the_card(gen, p):
+    """The per-ciphertext loop on the fused backend: one keyswitch and n of
+    each FFT and the MAC per ciphertext, decrypting as the batched round
+    and as the reference backend's plain loop."""
+    from repro_torch.core import glwe
+    ctx = TFHEContext.create(gen, p)
+    mod = p.plaintext_modulus
+    msgs = torch.arange(5, device="cuda") % mod
+    cts = ctx.encrypt(gen, msgs)
+    table = [(3 * v + 1) % mod for v in range(mod)]
+    polys = glwe.make_lut_polys_cached(torch.tensor([table] * 5), p, device="cuda")
+    engine = TaurusEngine.from_context(ctx)
+    reset_launch_counts()
+    out = engine.lut_batch_xpu(cts, polys)
+    assert launch_counts() == {"keyswitch_mac": 5, "fft_forward": 5 * p.n,
+                               "fft_inverse": 5 * p.n, "external_product_mac": 5 * p.n}
+    want = [table[m] for m in msgs.tolist()]
+    assert ctx.decrypt(out).tolist() == want
+    assert ctx.decrypt(engine.lut_batch(cts, polys)).tolist() == want
+    ref = TaurusEngine.from_context(ctx, kernel_backend="reference")
+    assert ctx.decrypt(ref.lut_batch_xpu(cts, polys)).tolist() == want
+
+
+def test_run_scenario_on_the_card(int_ctx):
+    """A 2-second open-loop scenario (radix add and mul on 8-bit integers
+    of 2-bit digits, const-op analytics) through `repro_torch.sim` on the
+    card's `ServeRuntime`: every request DONE, every payload decrypting to
+    its oracle, and one keyswitch and n of each FFT and the MAC per fused
+    round the engine ran."""
+    from repro_torch import sim
+    from repro_torch.obs import Telemetry
+    ic, _ = int_ctx
+    mix = sim.WorkloadMix.of({"radix_add": 2.0, "radix_mul": 1.0, "analytics_const": 1.0},
+                             bits=8, msg_bits=2)
+    sc = sim.Scenario("card", sim.Poisson(3.0), mix, duration_s=2.0, deadline_s=600.0,
+                      population=3, seed=2)
+    tel = ic.engine.telemetry = Telemetry()
+    try:
+        reset_launch_counts()
+        run = sim.run_scenario(sc, ic.ctx, ic.engine, max_inflight=3, validate=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        ic.engine.telemetry = None
+    plan = sim.arrival_plan(sc.arrival, sc.population, sc.duration_s, sc.seed)
+    o = run.report["overall"]
+    assert o["requests"] == o["done"] == len(run.records) == len(plan) > 0
+    assert all(r.record.ok_payload for r in run.records)
+    rounds, n = tel.snapshot()["counters"]["engine.lut_batches"], ic.params.n
+    assert rounds > 0 and counts == {"keyswitch_mac": rounds, "fft_forward": rounds * n,
+                                     "fft_inverse": rounds * n,
+                                     "external_product_mac": rounds * n}

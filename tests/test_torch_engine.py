@@ -212,3 +212,65 @@ def test_context_round_trip_through_numpy(ctx_2bit, tctx_2bit):
         assert np.array_equal(tensor_to_u64(getattr(tctx_2bit, name)),
                               np.asarray(getattr(ctx_2bit, name)))
     assert np.array_equal(tctx_2bit.bsk_f.numpy(), np.asarray(ctx_2bit.bsk_f))
+
+
+# --- the XPU baseline: no BSK reuse across ciphertexts ------------------------------
+
+@pytest.fixture(scope="module")
+def xpu_inputs(ctx_2bit, engine_2bit):
+    """Four JAX-encrypted ciphertexts under the identity table, with the
+    JAX engine's `lut_batch_xpu` decrypts (the counterpart of
+    tests/test_engine.py's batched-versus-XPU test)."""
+    p = ctx_2bit.params
+    cts, msgs = jax_cts(ctx_2bit, 4, seed=42)
+    polys = jnp.broadcast_to(jglwe.make_lut_poly(jnp.arange(4, dtype=jnp.uint64), p),
+                             (4, p.N))
+    want = [int(ctx_2bit.decrypt(v)) for v in engine_2bit.lut_batch_xpu(cts, polys)]
+    assert want == [int(m) for m in msgs]
+    return (u64_to_tensor(np.asarray(cts), "cpu"), u64_to_tensor(np.asarray(polys), "cpu"),
+            want)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_lut_batch_xpu_decrypts_as_lut_batch_and_jax(tctx_2bit, engines_2bit, xpu_inputs,
+                                                     backend):
+    """On both backends the per-ciphertext loop decrypts as the batched
+    round and as the JAX engine's `lut_batch_xpu` (exact); on the CPU the
+    fused backend launches no kernel."""
+    eng = engines_2bit[backend]
+    cts, polys, want = xpu_inputs
+    reset_launch_counts()
+    xpu = eng.lut_batch_xpu(cts, polys)
+    assert set(launch_counts().values()) == {0}
+    assert xpu.shape == cts.shape and xpu.dtype == torch.int64
+    assert tctx_2bit.decrypt(xpu).tolist() == want
+    assert tctx_2bit.decrypt(eng.lut_batch(cts, polys)).tolist() == want
+    with pytest.raises(ValueError, match="lut_batch_xpu: 4 ciphertexts but 3 LUT"):
+        eng.lut_batch_xpu(cts, polys[:3])
+
+
+def test_lut_batch_xpu_rows_are_one_row_rounds(engines_2bit, xpu_inputs):
+    """The fused backend's XPU pass is one one-row round per ciphertext:
+    bit for bit each row's own `lut_batch`, and the plain loop on the
+    reference backend is bit for bit `core.pbs.pbs` per row."""
+    from repro_torch.core import batch, pbs
+    cts, polys, _ = xpu_inputs
+    fused = engines_2bit["fused"]
+    xpu = fused.lut_batch_xpu(cts, polys)
+    for i in range(cts.shape[0]):
+        assert torch.equal(xpu[i:i + 1], fused.lut_batch(cts[i:i + 1], polys[i:i + 1]))
+    ref = engines_2bit["reference"]
+    loop = batch.pbs_unbatched_loop(cts, polys, ref.bsk_f, ref.ksk, ref.params)
+    assert torch.equal(loop[1], pbs.pbs(cts[1], polys[1], ref.bsk_f, ref.ksk, ref.params))
+    assert torch.equal(ref.lut_batch_xpu(cts, polys), loop)
+
+
+def test_lut_batch_xpu_telemetry(tctx_2bit, xpu_inputs):
+    tel = _Telemetry()
+    eng = TaurusEngine.from_context(tctx_2bit, device="cpu", telemetry=tel)
+    cts, polys, _ = xpu_inputs
+    eng.lut_batch_xpu(cts, polys)
+    assert tel.spans == [("lut_batch_xpu", {"cat": "engine", "rows": 4})]
+    assert tel.counts == {"engine.lut_batches_fused": 1, "engine.lut_batches": 1,
+                          "engine.pbs_rows": 4}
+    assert tel.observed == [("engine.lut_batch_rows", 4)]
