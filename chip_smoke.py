@@ -91,13 +91,26 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    outcomes must add up to its requests, records and (open loop) arrival
    plan, and the launches must be the engine's rounds x (1, n, n, n).
    The SLO verdicts follow the card's speed, so they are printed beside
-   each scenario's expectation, not enforced.
+   each scenario's expectation, not enforced;
+11. the LM stack's serving path (`repro_torch.launch.serve.serve`) at
+   full width in bf16 from the port's seeded init: qwen3-0.6b and
+   mamba2-130m serve 4 x 32 prompt tokens and 4 x 32 generated ones,
+   recurrentgemma-2b 4 x 32 and 4 x 8.  Each prints its walls, tokens/s,
+   ms per decode step, peak memory and parameter bytes, one decode step
+   traced (device busy, idle share) beside its roofline bound (weights
+   and cache bytes at the memory rate, 2 N_active B FLOPs at the bf16
+   peak), and must give last logits within LM_BF16_TOL of the port's own
+   forward at that position.  Then every reduced config (f32) on the
+   card must give the CPU's forward hidden states and decode logits on
+   the same weights within LM_CARD_CPU_TOL.  The path launches none of
+   the four kernels.
 
 Prints the card, the build time, a line per phase, a `{"cmux_accuracy":
 ...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}`, a `{"serve": ...}`, an
 `{"xpu": ...}`, a `{"sim": ...}` and a `{"kernels": ...}` JSON line and,
 last,
-`{"ok": true, "device": {...}}`.  Any failure raises and exits nonzero.
+`{"ok": true, "device": {...}}`, with an `{"lm": ...}` line before the
+`{"kernels": ...}` one.  Any failure raises and exits nonzero.
 Needs CUDA; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -141,7 +154,27 @@ SERVE_PROBE_ROUND = 20
 SIM_DURATION_S = 12.0
 SIM_TIMEOUT_S = 600
 # The card's data-sheet peaks come from repro_torch.launch.roofline.PEAKS:
-# memory bytes/s, FP64 FLOP/s (tensor cores), int8 tensor-core OP/s.
+# memory bytes/s, FP64 FLOP/s (tensor cores), int8 tensor-core OP/s, bf16
+# tensor-core FLOP/s.
+# The lm phase: (arch, batch, prompt tokens, generated tokens) served at
+# full width in bf16.
+LM_FULL = (("qwen3-0.6b", 4, 32, 32), ("mamba2-130m", 4, 32, 32),
+           ("recurrentgemma-2b", 4, 32, 8))
+# Full width, bf16: the last decode logits against the port's forward at
+# the last position, max |diff| at most this share of max |logit|.  bf16
+# keeps 8 significant bits (spacing 2^-7 of the value); the residual
+# stream is rounded after each of 2L sub-layers, in other GEMM shapes in
+# decode (B rows) than in the forward (B x T rows): a few percent
+# (PERF.md section 5), where a wrong cache slot, position or state reads
+# O(1).
+LM_BF16_TOL = 0.125
+# Reduced configs, f32: the card's forward hidden states and decode
+# logits against the CPU's on the same weights (rtol = atol).  Summation
+# order differs between the card's and the CPU's kernels; the
+# recurrences carry each rounding forward (tests/test_torch_lm.py holds
+# the port to the reference at 1e-4 for the same reason).
+LM_CARD_CPU_TOL = 1e-4
+LM_REDUCED_STEPS = 16
 
 
 def cuda_ms(fn, reps: int = REPEATS) -> float:
@@ -188,13 +221,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def profile_round(run, untraced_s: float, smi: str, steps: int,
-                  trace: str = "profile_round.json", other: int = 200) -> dict:
-    """Trace one call of `run` and print where the device time goes.
-    Raises if the call holds more than 3 device events per CMux step
-    (forward, MAC, inverse) plus `other` for the rest of its rounds.
-    Returns the call's result and the device busy ms, idle share and ms
-    by kernel."""
+def trace_device(run, trace: str):
+    """Run `run` once under `torch.profiler`, its Chrome trace to
+    `build/<trace>`.  Returns (result, traced wall s, device events,
+    {kernel name: [calls, ms]}, device busy ms).  Raises on a trace with
+    no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -214,7 +245,17 @@ def profile_round(run, untraced_s: float, smi: str, steps: int,
     for e in events:
         by_name[e["name"]][0] += 1
         by_name[e["name"]][1] += e["dur"] / 1e3
-    busy = sum(v[1] for v in by_name.values())
+    return result, wall, events, by_name, sum(v[1] for v in by_name.values())
+
+
+def profile_round(run, untraced_s: float, smi: str, steps: int,
+                  trace: str = "profile_round.json", other: int = 200) -> dict:
+    """Trace one call of `run` and print where the device time goes.
+    Raises if the call holds more than 3 device events per CMux step
+    (forward, MAC, inverse) plus `other` for the rest of its rounds.
+    Returns the call's result and the device busy ms, idle share and ms
+    by kernel."""
+    result, wall, events, by_name, busy = trace_device(run, trace)
     print(f"profile: {len(events)} device events per round, "
           f"{len(events) / steps:.2f} per CMux step ({steps} steps)")
     if len(events) > 3 * steps + other:
@@ -938,6 +979,138 @@ def sim_phase(ctx, engine, peaks, smi: str) -> dict:
             "kernels": at_rows}
 
 
+def lm_phase(smi: str, peaks) -> dict:
+    """The LM stack's serving path: each of LM_FULL through
+    `repro_torch.launch.serve.serve` at full width (the port's seeded
+    init, bf16), its last logits against the port's own forward, one
+    decode step traced and held against the roofline bound; then every
+    reduced config's forward and decode logits on the card against the
+    CPU on the same weights.  The path launches none of the FHE kernels."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import _build
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import build
+
+    full = {}
+    _build.reset_launch_counts()
+    for arch, batch, prompt_len, gen in LM_FULL:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = serve(arch, reduced=False, batch=batch, prompt_len=prompt_len, gen=gen)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        model, cfg = run.model, run.model.cfg
+        if run.tokens.shape != (batch, gen) or not torch.isfinite(run.logits).all():
+            raise AssertionError(f"lm {arch}: tokens {run.tokens.shape}, logits not finite")
+        seq = torch.cat([run.prompts, torch.as_tensor(run.tokens, dtype=torch.int32,
+                                                      device=run.prompts.device)], dim=1)
+        want = make_prefill_step(cfg)(model, {"tokens": seq})
+        err = (run.logits - want).abs().max().item()
+        scale = want.abs().max().item()
+        rms = ((run.logits - want).norm() / want.norm()).item()
+
+        weight_bytes = nbytes(*model.parameters())
+        cache_bytes = nbytes(*(v for c in run.cache for v in c.values() if torch.is_tensor(v)))
+        flops = rl.model_flops(cfg, ShapeSpec("serve", prompt_len + gen, batch, "decode"))
+        roof = rl.from_counts(flops, weight_bytes + cache_bytes, model_flops=flops,
+                              peaks=peaks, compute_peak="bf16_flops")
+        step_ms = run.decode_s / gen * 1e3
+        # one decode step at position 0 of a fresh cache of the same size:
+        # it reads the same weights and cache bytes as any other step
+        cache = model.init_cache(batch, prompt_len + gen)
+        tok = run.prompts[:, :1]
+        pos = torch.zeros((batch, 1), dtype=torch.int32, device=tok.device)
+        model.decode_step(cache, tok, pos)
+        cache = model.init_cache(batch, prompt_len + gen)
+        _, traced_s, events, by_name, busy = trace_device(
+            lambda: model.decode_step(cache, tok, pos), f"profile_lm_{arch}.json")
+        row = {
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "batch": batch, "prompt_len": prompt_len, "gen": gen,
+            "params": sum(p.numel() for p in model.parameters()),
+            "param_bytes": weight_bytes, "cache_bytes": cache_bytes,
+            "serve_wall_s": wall, "prefill_s": run.prefill_s, "decode_s": run.decode_s,
+            "tokens_per_s": batch * gen / run.decode_s, "ms_per_decode_step": step_ms,
+            "bound_ms": roof.t_bound * 1e3, "bound_by": roof.bottleneck,
+            "t_memory_ms": roof.t_memory * 1e3, "t_compute_ms": roof.t_compute * 1e3,
+            "step_over_bound": step_ms / (roof.t_bound * 1e3),
+            "traced_step_busy_ms": busy, "traced_step_events": len(events),
+            "traced_step_idle_share": 1 - busy / step_ms,
+            "peak_gb": peak / 1e9, "decode_vs_forward_max_abs_err": err,
+            "max_abs_logit": scale, "relative_err": err / scale, "rms_relative_err": rms,
+            "first_tokens": run.tokens[:, :8].tolist()}
+        full[arch] = row
+        print(f"lm {arch} full width ({row['layers']} layers, d {row['d_model']}, "
+              f"{row['params'] / 1e9:.3f} B params, {weight_bytes / 1e9:.3f} GB {cfg.dtype}): "
+              f"prefill {prompt_len} x{batch} {run.prefill_s:.3f} s, decode {gen} x{batch} "
+              f"{run.decode_s:.3f} s, {row['tokens_per_s']:.1f} tok/s, "
+              f"{step_ms:.3f} ms per decode step; peak device memory {peak / 1e9:.2f} GB "
+              f"above the earlier phases' on {smi}")
+        print(f"lm {arch} decode step bound {row['bound_ms']:.4f} ms ({roof.bottleneck}: "
+              f"weights + cache {(weight_bytes + cache_bytes) / 1e9:.4f} GB at "
+              f"{peaks.mem_bw / 1e12:.2f} TB/s = {row['t_memory_ms']:.4f} ms; "
+              f"2 N_active B = {flops:.4e} FLOPs at bf16 {peaks.bf16_flops / 1e12:.0f} "
+              f"TFLOP/s = {row['t_compute_ms']:.5f} ms); measured step "
+              f"{row['step_over_bound']:.1f}x the bound; traced step: device busy "
+              f"{busy:.3f} ms over {len(events)} device events ({traced_s * 1e3:.1f} ms "
+              f"traced wall), idle share {row['traced_step_idle_share']:.3f} of the "
+              f"untraced step")
+        for name, (count, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+            print(f"  {ms:9.4f} ms {100 * ms / busy:5.1f}% x{count:5d}  {name[:90]}")
+        print(f"lm {arch} decode vs forward at position {prompt_len + gen - 1}: max |diff| "
+              f"{err:.4g} of max |logit| {scale:.4g} (relative {err / scale:.4g}, limit "
+              f"{LM_BF16_TOL}), rms relative {rms:.4g}; first tokens {row['first_tokens']}")
+        if not err <= LM_BF16_TOL * scale:
+            raise AssertionError(f"lm {arch}: decode disagrees with forward at full width")
+        del run, model, cache, want
+        torch.cuda.empty_cache()
+
+    reduced = {}
+    for arch in configs.ARCH_IDS:
+        cfg = reduced_config(arch)
+        g = torch.Generator().manual_seed(SEED)
+        cpu = build(cfg, "cpu").init(g)
+        card = build(cfg, "cuda")
+        card.load_state_dict(cpu.state_dict())
+        rows, T = 2, LM_REDUCED_STEPS
+        toks = torch.randint(0, cfg.vocab_size, (rows, T), generator=g, dtype=torch.int32)
+        fe = (torch.randn((rows, cfg.frontend_len, cfg.frontend_dim), generator=g)
+              if cfg.frontend != "none" else None)
+        with torch.no_grad():
+            h_cpu, _ = cpu(toks, fe)
+            h_card, _ = card(toks.cuda(), None if fe is None else fe.cuda())
+        errs = {"forward": (h_card.cpu() - h_cpu).abs().max().item(), "decode": 0.0}
+        ok = torch.allclose(h_card.cpu(), h_cpu, rtol=LM_CARD_CPU_TOL, atol=LM_CARD_CPU_TOL)
+        c_cpu, c_card = cpu.init_cache(rows, T), card.init_cache(rows, T)
+        for i in range(T):
+            pos = torch.full((rows, 1), i, dtype=torch.int32)
+            l_cpu, c_cpu = cpu.decode_step(c_cpu, toks[:, i:i + 1], pos)
+            l_card, c_card = card.decode_step(c_card, toks[:, i:i + 1].cuda(), pos.cuda())
+            errs["decode"] = max(errs["decode"], (l_card.cpu() - l_cpu).abs().max().item())
+            ok &= torch.allclose(l_card.cpu(), l_cpu, rtol=LM_CARD_CPU_TOL,
+                                 atol=LM_CARD_CPU_TOL)
+        reduced[arch] = {"forward_max_abs_err": errs["forward"],
+                         "decode_max_abs_err": errs["decode"]}
+        print(f"lm {cfg.name} (f32) card against CPU: forward hidden max |diff| "
+              f"{errs['forward']:.3e}, {T} decode steps' logits max |diff| "
+              f"{errs['decode']:.3e} (rtol = atol = {LM_CARD_CPU_TOL})")
+        if not ok:
+            raise AssertionError(f"lm {cfg.name}: the card disagrees with the CPU")
+    launches = _build.launch_counts()
+    print(f"lm phase kernel launches: {launches}")
+    if any(launches.values()):
+        raise AssertionError("the LM path launched FHE kernels")
+    return {"full": full, "reduced_card_vs_cpu": reduced, "bf16_tol": LM_BF16_TOL,
+            "card_cpu_tol": LM_CARD_CPU_TOL}
+
+
 def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
     """Each kernel on the shapes a round of `cts.shape[0]` rows gives it,
     against its plain version, timed one call at a time and back to
@@ -947,7 +1120,7 @@ def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
     from repro_torch.core import decompose as dec, torus
     from repro_torch.kernels import external_product as ep, fourstep_fft as ff
     from repro_torch.kernels import keyswitch as ks
-    mem_rate, fp64_rate, int8_rate = peaks
+    mem_rate, fp64_rate, int8_rate = peaks[:3]
     p = pack.params
     R, K, M = cts.shape[0], p.k + 1, p.N // 2
     J = K * p.pbs_level
@@ -1288,6 +1461,9 @@ def main() -> int:
     print(json.dumps({"xpu": xpu}))
     simmed = sim_phase(ctx, engine, peaks, smi)
     print(json.dumps({"sim": simmed}))
+
+    # -- the LM stack's serving path, at full width and every reduced config ---
+    print(json.dumps({"lm": lm_phase(smi, peaks)}))
 
     counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
     for row in kernels:

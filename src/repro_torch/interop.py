@@ -1,4 +1,5 @@
-"""Carry key material, ciphertexts and radix integers across from numpy.
+"""Carry key material, ciphertexts, radix integers and LM weights across
+from numpy.
 
 The reference keeps torus values as uint64; the port carries the same
 bits as int64 (`ndarray.view(np.int64)`).  These helpers import no JAX:
@@ -58,3 +59,53 @@ def radix_from_numpy(spec_fields: dict, digits, device=None):
 def radix_to_numpy(rct: RadixCiphertext) -> tuple[dict, np.ndarray]:
     """The inverse of `radix_from_numpy`: (spec fields, uint64 digits)."""
     return dataclasses.asdict(rct.spec), tensor_to_u64(rct.digits)
+
+
+def _lm_tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor; bfloat16 (ml_dtypes) by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16)).view(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def _lm_flat(tree, prefix: str, index=None):
+    """(dotted name, array) leaves of a param dict; `index` picks one
+    entry of stacked (scanned) leaves."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _lm_flat(val, f"{prefix}{key}.", index)
+        else:
+            yield f"{prefix}{key}", (val if index is None else val[index])
+
+
+def lm_params_from_numpy(model, params: dict):
+    """Load the reference's LM param pytree into a built port `Model`.
+
+    params: `jax.tree.map(np.asarray, model.init(key))` of the reference
+    `Model` of the same config.  Its `blocks` leaves carry a leading
+    macro-block axis (the scanned layers) and unstack into the flat
+    `model.layers`, then `tail` follows.  Every parameter of `model` must
+    be given, with its shape; the reference's `x @ W` orientation is the
+    port's.  Returns `model`."""
+    period = len(model.cfg.layer_pattern)
+    n_scan = model.cfg.num_layers // period
+    flat = {k: v for k, v in params.items() if k not in ("blocks", "tail")}
+    for b in range(n_scan):
+        for i in range(period):
+            flat.update(_lm_flat(params["blocks"][f"l{i}"], f"layers.{b * period + i}.", b))
+    for j, lp in enumerate(params.get("tail", [])):
+        flat.update(_lm_flat(lp, f"layers.{n_scan * period + j}."))
+    state = model.state_dict()
+    if set(flat) != set(state):
+        raise KeyError(f"params do not match the model: missing "
+                       f"{sorted(set(state) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(state))}")
+    with torch.no_grad():
+        for name, a in flat.items():
+            t = _lm_tensor(a)
+            if tuple(t.shape) != tuple(state[name].shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, model has "
+                                 f"{tuple(state[name].shape)}")
+            state[name].copy_(t)
+    return model

@@ -3,18 +3,19 @@
 Hardware model: the card's data-sheet peaks (`PEAKS`, matched on the
 name `nvidia-smi` reports; the H100 SXM by default):
 
-    compute term    = FLOPs      / (chips * FP64 peak)
+    compute term    = FLOPs      / (chips * compute peak)
     memory term     = bytes      / (chips * memory rate)
     collective term = coll_bytes / (chips * NVLink rate)
 
-The compute term takes the FP64 rate because the PBS transforms and the
-external-product MAC run in f64 (the keyswitch's int8 tensor-core work
-is not part of `pbs_flops`, as in the reference).
+The compute peak is the FP64 rate by default, because the PBS transforms
+and the external-product MAC run in f64 (the keyswitch's int8
+tensor-core work is not part of `pbs_flops`, as in the reference); the
+LM stack's bf16 matmuls take `compute_peak="bf16_flops"`.
 
 The reference builds a `Roofline` from compiled XLA HLO
 (`from_compiled`, through `launch.hlo_analysis`).  PyTorch has no HLO to
-read, so `from_counts` takes analytic FLOP and byte counts instead.  The
-LM stack's `model_flops(cfg, shape)` waits for the LM scaffolding's port.
+read, so `from_counts` takes analytic FLOP and byte counts instead.
+`model_flops(cfg, shape)` is the LM stack's useful-FLOP count.
 
 `PbsRoundModel` / `pbs_round_model` are the reference's per-round
 key-reuse traffic model, byte for byte; only `t_memory` reads the card's
@@ -32,13 +33,14 @@ class Peaks(NamedTuple):
     mem_bw: float        # device memory, bytes/s
     fp64_flops: float    # FP64 tensor-core FLOP/s
     int8_ops: float      # int8 tensor-core OP/s
+    bf16_flops: float    # bf16 tensor-core FLOP/s
 
 
 # Data-sheet peaks by card (NVIDIA H100 data sheet, dense), matched on the
 # name nvidia-smi reports; the first key contained in the name wins.
-PEAKS = {"H100 PCIe": Peaks(2.0e12, 51.2e12, 1513e12),
-         "H100 NVL": Peaks(3.9e12, 60e12, 1671e12),
-         "H100": Peaks(3.35e12, 67e12, 1979e12)}
+PEAKS = {"H100 PCIe": Peaks(2.0e12, 51.2e12, 1513e12, 756e12),
+         "H100 NVL": Peaks(3.9e12, 60e12, 1671e12, 835e12),
+         "H100": Peaks(3.35e12, 67e12, 1979e12, 989e12)}
 H100_SXM = PEAKS["H100"]
 # NVLink 4 on the H100 SXM: 900 GB/s per card both ways, 450 GB/s each way
 NVLINK_BW = 450e9
@@ -63,10 +65,15 @@ class Roofline:
     model_flops: float = 0.0   # useful FLOPs of the whole job
     hbm_bytes_major: float = 0.0  # bytes if intermediates stayed on chip
     peaks: Peaks = H100_SXM
+    compute_peak: str = "fp64_flops"   # the `Peaks` field FLOPs run at
+
+    @property
+    def peak_flops(self) -> float:
+        return getattr(self.peaks, self.compute_peak)
 
     @property
     def t_compute(self) -> float:
-        return self.flops / self.peaks.fp64_flops
+        return self.flops / self.peak_flops
 
     @property
     def t_memory(self) -> float:
@@ -88,7 +95,7 @@ class Roofline:
 
     @property
     def mfu_bound_major(self) -> float:
-        t_useful = self.model_flops / (self.chips * self.peaks.fp64_flops)
+        t_useful = self.model_flops / (self.chips * self.peak_flops)
         return t_useful / self.t_bound_major if self.t_bound_major else 0.0
 
     @property
@@ -105,7 +112,7 @@ class Roofline:
     def mfu_bound(self) -> float:
         """Upper bound on achievable MFU: useful-FLOPs time over the
         roofline-dominant time."""
-        t_useful = self.model_flops / (self.chips * self.peaks.fp64_flops)
+        t_useful = self.model_flops / (self.chips * self.peak_flops)
         return t_useful / self.t_bound if self.t_bound else 0.0
 
     @property
@@ -128,6 +135,19 @@ class Roofline:
             "flops_ratio": self.flops_ratio,
             "coll_breakdown": self.coll_breakdown,
         }
+
+
+def model_flops(cfg, shape) -> float:
+    """6*N*D for training, 2*N*D for a forward pass/prefill, 2*N_active per
+    decoded token (D = tokens processed)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    # decode: one token per sequence; attention reads the whole KV cache —
+    # count the matmul FLOPs only (2*N_active per token)
+    return 2.0 * n_active * shape.global_batch
 
 
 @dataclasses.dataclass
@@ -236,10 +256,10 @@ def pbs_kernel_bytes(params, rows: int) -> dict:
 def from_counts(flops: float, hbm_bytes: float, chips: int = 1, *,
                 coll_bytes: float = 0.0, coll_breakdown: dict | None = None,
                 model_flops: float = 0.0, hbm_bytes_major: float = 0.0,
-                peaks: Peaks = H100_SXM) -> Roofline:
+                peaks: Peaks = H100_SXM, compute_peak: str = "fp64_flops") -> Roofline:
     """A `Roofline` from analytic per-device counts (where the reference's
     `from_compiled` reads them from compiled HLO)."""
     return Roofline(flops=flops, hbm_bytes=hbm_bytes, coll_bytes=coll_bytes,
                     chips=chips, coll_breakdown=coll_breakdown or {},
                     model_flops=model_flops, hbm_bytes_major=hbm_bytes_major,
-                    peaks=peaks)
+                    peaks=peaks, compute_peak=compute_peak)

@@ -13,7 +13,12 @@ output scale, the MAC within 1e-9 relative, and the torus output of
 (the f64 transform's rounding, then one torus unit);
 PBS rounds, radix integer ops, the `fhe_ml` blocks and served waves
 decrypt exactly to their oracles (a wave to its programs' eager runs);
-the quantize-to-radix MLP's floats stay within its `tol_fn`.
+the quantize-to-radix MLP's floats stay within its `tol_fn`; the LM
+stack's reduced configs (f32) give the CPU's forward hidden states and
+decode logits within 1e-4 (summation order, carried by the
+recurrences), and a full-width bf16 decode step the forward's logits
+within an eighth of their largest magnitude (bf16 rounding over 2L
+sub-layers; `chip_smoke.py`'s LM_BF16_TOL).
 """
 import pytest
 
@@ -33,6 +38,11 @@ from repro_torch.core import torus  # noqa: E402
 from repro_torch.core.pbs import TFHEContext  # noqa: E402
 from repro_torch.kernels import external_product, fourstep_fft, keyswitch  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.launch.train import reduced_config  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models.model import POS_SENTINEL  # noqa: E402
 
 
 @pytest.fixture
@@ -429,3 +439,46 @@ def test_run_scenario_on_the_card(int_ctx):
     assert rounds > 0 and counts == {"keyswitch_mac": rounds, "fft_forward": rounds * n,
                                      "fft_inverse": rounds * n,
                                      "external_product_mac": rounds * n}
+
+
+@pytest.mark.parametrize("arch", list(configs.ARCH_IDS))
+def test_reduced_lm_card_against_cpu(gen, arch):
+    """A reduced config's forward hidden states and 16 decode steps'
+    logits on the card equal the CPU's on the same weights."""
+    cfg = reduced_config(arch)
+    g = torch.Generator().manual_seed(11)
+    cpu = build(cfg, "cpu").init(g)
+    card = build(cfg)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g, dtype=torch.int32)
+    fe = (torch.randn((2, cfg.frontend_len, cfg.frontend_dim), generator=g)
+          if cfg.frontend != "none" else None)
+    with torch.no_grad():
+        want, _ = cpu(toks, fe)
+        got, _ = card(toks.cuda(), None if fe is None else fe.cuda())
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    c_cpu, c_card = cpu.init_cache(2, 16), card.init_cache(2, 16)
+    for i in range(16):
+        pos = torch.full((2, 1), i, dtype=torch.int32)
+        want, c_cpu = cpu.decode_step(c_cpu, toks[:, i:i + 1], pos)
+        got, c_card = card.decode_step(c_card, toks[:, i:i + 1].cuda(), pos.cuda())
+        assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_full_width_qwen3_decode_step_bf16(gen):
+    """One decode step of qwen3-0.6b at full width (28 layers, d 1024,
+    vocab 151,936, bf16) from the port's seeded init on the card."""
+    cfg = configs.get("qwen3-0.6b")
+    model = build(cfg).init(gen)
+    assert model.embed.dtype == torch.bfloat16 and model.embed.is_cuda
+    cache = model.init_cache(4, 8)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    pos = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    logits, cache = model.decode_step(cache, toks, pos)
+    assert logits.shape == (4, cfg.vocab_size) and logits.dtype == torch.float32
+    assert torch.isfinite(logits).all()
+    assert cache[0]["index"] == 1 and (cache[0]["pos"][:, 0] == 0).all()
+    assert (cache[0]["pos"][:, 1:] == POS_SENTINEL).all()
+    want = make_prefill_step(cfg)(model, {"tokens": toks})
+    assert (logits - want).abs().max() <= 0.125 * want.abs().max()

@@ -2,7 +2,8 @@
 against `repro.launch.roofline` and `repro.launch.pbs_dryrun`.
 
 The per-round traffic model and the PBS FLOP count equal the
-reference's for every parameter set; the port's resident pack streams
+reference's for every parameter set, and the LM stack's `model_flops`
+for every arch and shape; the port's resident pack streams
 no more than the model per round; the per-kernel byte counts equal the
 bytes of the tensors the kernels take (what `chip_smoke.py`'s bounds
 count).  The reference's `pbs_dryrun` sets a 512-device XLA flag when
@@ -11,18 +12,23 @@ exact.
 """
 import ast
 import dataclasses
+import importlib
 from pathlib import Path
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.configs as jconfigs  # noqa: E402
 from repro.core import params as jparams  # noqa: E402
 from repro.launch import roofline as jrl  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.core import decompose as dec, params, torus  # noqa: E402
 from repro_torch.core.engine import TaurusEngine  # noqa: E402
 from repro_torch.kernels import fourstep_fft as ff, external_product as ep  # noqa: E402
 from repro_torch.launch import pbs_dryrun, roofline as rl  # noqa: E402
+from repro_torch.launch.train import reduced_config  # noqa: E402
 from test_torch_api import port_context  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,22 +81,38 @@ def test_roofline_terms_on_the_card():
     """The reference's fields and properties, over the card's peaks."""
     roof = rl.from_counts(2.0e12, 6.7e9, model_flops=1.0e12, hbm_bytes_major=3.35e9)
     assert [f.name for f in dataclasses.fields(jrl.Roofline)] == \
-        [f.name for f in dataclasses.fields(rl.Roofline)][:-1]
+        [f.name for f in dataclasses.fields(rl.Roofline)][:-2]
     assert roof.t_compute == 2.0e12 / 67e12 and roof.t_memory == 6.7e9 / 3.35e12
     assert roof.t_memory_major == 1e-3 and roof.t_collective == 0.0
     assert roof.bottleneck == "compute" and roof.t_bound == roof.t_compute
     assert roof.flops_ratio == 0.5 and roof.mfu_bound == pytest.approx(0.5, rel=1e-12)
     ref = jrl.Roofline(2.0e12, 6.7e9, 0.0, 1, {}, 1.0e12, 3.35e9)
     assert set(roof.to_dict()) == set(ref.to_dict())
+    # the LM stack's matmuls run at the bf16 tensor-core peak
+    lm = rl.from_counts(9.89e12, 6.7e9, model_flops=9.89e12, compute_peak="bf16_flops")
+    assert lm.t_compute == 0.01 and lm.bottleneck == "compute"
+    assert lm.mfu_bound == pytest.approx(1.0, rel=1e-12)
 
 
-@pytest.mark.parametrize("smi,want", [("NVIDIA H100 80GB HBM3", (3.35e12, 67e12, 1979e12)),
-                                      ("NVIDIA H100 PCIe", (2.0e12, 51.2e12, 1513e12)),
-                                      ("NVIDIA H100 NVL", (3.9e12, 60e12, 1671e12))])
+@pytest.mark.parametrize("smi,want", [
+    ("NVIDIA H100 80GB HBM3", (3.35e12, 67e12, 1979e12, 989e12)),
+    ("NVIDIA H100 PCIe", (2.0e12, 51.2e12, 1513e12, 756e12)),
+    ("NVIDIA H100 NVL", (3.9e12, 60e12, 1671e12, 835e12))])
 def test_card_peaks(smi, want):
     assert tuple(rl.card_peaks(smi)) == want
     with pytest.raises(RuntimeError, match="no data-sheet peaks"):
         rl.card_peaks("NVIDIA A100-SXM4-80GB")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_model_flops_equals_reference(arch):
+    """Every arch x shape cell, the full config and the reduced one."""
+    mod = arch.replace("-", "_").replace(".", "_")
+    for cfg, jcfg in ((configs.get(arch), jconfigs.get(arch)),
+                      (reduced_config(arch), importlib.import_module(
+                          f"repro.configs.{mod}").reduced())):
+        for name, shape in configs.SHAPES.items():
+            assert rl.model_flops(cfg, shape) == jrl.model_flops(jcfg, jconfigs.SHAPES[name])
 
 
 @pytest.fixture(scope="module")
