@@ -103,14 +103,34 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    forward at that position.  Then every reduced config (f32) on the
    card must give the CPU's forward hidden states and decode logits on
    the same weights within LM_CARD_CPU_TOL.  The path launches none of
-   the four kernels.
+   the four kernels;
+12. LM training (`repro_torch.launch.train.train`) at qwen3-0.6b's full
+   width in bf16 with the reference `train`'s defaults (batch 8, seq 256,
+   lr 3e-3 under the cosine schedule): run one takes 4 steps and saves,
+   run two resumes at step 4, fails at step 6 (the runner's retries
+   spent), restores step 4 and finishes at 8, and the same run two
+   without the failure runs from a copy of the checkpoint.  Every loss
+   must be finite, the first within TRAIN_FIRST_LOSS_TOL of ln V + d
+   0.02^2 / 2 (the seeded init against its tied head), the last below
+   it; run two's losses must equal the run without the failure within
+   TRAIN_RESTART_TOL, and every restore must return the saved tensors
+   bit for bit.  Three steps with `compress_grads` must keep a finite
+   error-feedback buffer after every step.  One train step at the same
+   shapes is timed (host clock), traced (device busy, idle share, top
+   device ops) and held against its roofline bound (6 N D FLOPs at the
+   bf16 peak, `train_step_bytes` at the memory rate), with its peak
+   device memory, the checkpoint's size and save / restore seconds.  Then
+   every reduced config (f32) takes TRAIN_REDUCED_STEPS train steps on
+   the card and on the CPU from the same weights and batches, within
+   TRAIN_CARD_CPU_TOL.  The path launches none of the four kernels.
 
 Prints the card, the build time, a line per phase, a `{"cmux_accuracy":
 ...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}`, a `{"serve": ...}`, an
 `{"xpu": ...}`, a `{"sim": ...}` and a `{"kernels": ...}` JSON line and,
 last,
-`{"ok": true, "device": {...}}`, with an `{"lm": ...}` line before the
-`{"kernels": ...}` one.  Any failure raises and exits nonzero.
+`{"ok": true, "device": {...}}`, with an `{"lm": ...}` and a `{"train":
+...}` line before the `{"kernels": ...}` one.  Any failure raises and
+exits nonzero.
 Needs CUDA; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -119,6 +139,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import random
 import statistics
 import subprocess
@@ -175,6 +196,34 @@ LM_BF16_TOL = 0.125
 # the port to the reference at 1e-4 for the same reason).
 LM_CARD_CPU_TOL = 1e-4
 LM_REDUCED_STEPS = 16
+# The train phase: the reference `train`'s defaults at qwen3-0.6b's full
+# width (batch 8, seq 256, loss_chunk min(seq, 512), lr 3e-3 under the
+# cosine schedule with warmup steps // 10).  Run one takes TRAIN_RESUME_AT
+# steps and saves; run two resumes there, fails at TRAIN_FAIL_AT, restores
+# and finishes at TRAIN_STEPS.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-0.6b", 8, 8, 256
+TRAIN_RESUME_AT, TRAIN_FAIL_AT = 4, 6
+TRAIN_COMPRESS_STEPS = 3
+TRAIN_TIMED_STEPS = 3
+# The first loss of the seeded init: the logits of a unit-rms final hidden
+# state against a tied head of std 0.02 have variance d * 0.02^2, so the
+# log-partition sits at ln V + d * 0.02^2 / 2 above a gold logit of mean 0.
+TRAIN_FIRST_LOSS_TOL = 0.05
+# Run two (resumed, failed, restored) against the same run two without the
+# failure, from a copy of the same checkpoint: loss by loss.
+TRAIN_RESTART_TOL = 0.0
+# Reduced configs (f32), TRAIN_REDUCED_STEPS train steps at lr TRAIN_LR on
+# the card and on the CPU from the same weights and batches: losses within
+# TRAIN_CARD_CPU_TOL (relative), the updated parameters within it
+# (absolute) but for a TRAIN_CARD_CPU_OUTLIERS share of the elements, which
+# must stay within 2 lr per step.  Summation order differs, and Adam
+# divides each gradient by its own rms: its first step moves a parameter
+# by lr * g / (|g| + eps), so a gradient near zero (or eps) turns its
+# rounding into a share of a whole step.
+TRAIN_REDUCED_STEPS = 2
+TRAIN_LR = 3e-3
+TRAIN_CARD_CPU_TOL = 1e-4
+TRAIN_CARD_CPU_OUTLIERS = 1e-4
 
 
 def cuda_ms(fn, reps: int = REPEATS) -> float:
@@ -1111,6 +1160,257 @@ def lm_phase(smi: str, peaks) -> dict:
             "card_cpu_tol": LM_CARD_CPU_TOL}
 
 
+def _bits(t):
+    """A tensor's bytes as integers, for a bit-for-bit comparison."""
+    import torch
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def train_phase(smi: str, peaks) -> dict:
+    """The LM training path (`repro_torch.launch.train.train`) at full
+    width: run one, run two with an injected failure and a restore, the
+    same run two without the failure, every checkpoint restore held bit
+    for bit against what was saved; gradient compression; one train step
+    timed, traced and held against its roofline bound; then every reduced
+    config's train steps on the card against the CPU.  The path launches
+    none of the FHE kernels."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import _build
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import reduced_config, train
+    from repro_torch.models import build
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import Int8Compressor
+
+    cfg = configs.get(TRAIN_ARCH)
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1)
+    _build.reset_launch_counts()
+
+    # every save keeps a copy of its tree on the card; every restore is
+    # compared with it bit for bit and timed
+    saved, io = {}, {"save_s": [], "restore_s": [], "restores": []}
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+
+    def timed_save(self, step, tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(self, step, tree)
+        io["save_s"].append(time.perf_counter() - t0)
+        saved[(Path(self.dir).name, step)] = {
+            k: {n: t.detach().clone() for n, t in v.items()} for k, v in tree.items()}
+        return path
+
+    def checked_restore(self, like, step=None):
+        t0 = time.perf_counter()
+        tree, step = restore(self, like, step)
+        torch.cuda.synchronize()
+        io["restore_s"].append(time.perf_counter() - t0)
+        want = saved[(Path(self.dir).name, step)]
+        same = all(torch.equal(_bits(tree[k][n]), _bits(want[k][n]))
+                   for k in want for n in want[k])
+        io["restores"].append({"dir": Path(self.dir).name, "step": step, "bitwise": same})
+        return tree, step
+
+    CheckpointManager.save, CheckpointManager.restore = timed_save, checked_restore
+    try:
+        t0 = time.perf_counter()
+        l1, _ = train(TRAIN_ARCH, steps=TRAIN_RESUME_AT, ckpt_dir=str(root / "a"), **kw)
+        wall1 = time.perf_counter() - t0
+        # hard links: a checkpoint's files are never rewritten in place
+        shutil.copytree(root / "a", root / "b", copy_function=os.link)
+        saved[("b", TRAIN_RESUME_AT)] = saved[("a", TRAIN_RESUME_AT)]
+        t0 = time.perf_counter()
+        l2, stats2 = train(TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=str(root / "a"),
+                           fail_at_step=TRAIN_FAIL_AT, **kw)
+        wall2 = time.perf_counter() - t0
+        clean, _ = train(TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=str(root / "b"), **kw)
+    finally:
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+    ckpt_dir = root / "a" / f"step_{TRAIN_STEPS:08d}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+    del saved
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+    # gradient compression through train(): the error-feedback buffer after
+    # every step
+    efs = []
+    roundtrip = Int8Compressor.roundtrip
+
+    def checked_roundtrip(self, grads, ef_state, groups=None):
+        out, ef = roundtrip(self, grads, ef_state, groups)
+        efs.append({"tensors": len(ef), "finite": all(bool(torch.isfinite(e).all())
+                                                      for e in ef.values()),
+                    "max_abs": max(float(e.abs().max()) for e in ef.values())})
+        return out, ef
+
+    Int8Compressor.roundtrip = checked_roundtrip
+    try:
+        lc, _ = train(TRAIN_ARCH, steps=TRAIN_COMPRESS_STEPS, compress_grads=True, **kw)
+    finally:
+        Int8Compressor.roundtrip = roundtrip
+    torch.cuda.empty_cache()
+
+    # one train step at the same shapes: timed on the host clock, traced,
+    # against the bound
+    model = build(cfg)
+    model.init(torch.Generator(model.device).manual_seed(0))
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=0, total=TRAIN_STEPS))
+    step = make_train_step(cfg, opt, loss_chunk=min(TRAIN_SEQ, 512))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    batches = [data.batch(i) for i in range(TRAIN_TIMED_STEPS + 2)]
+    state = opt.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(model, state, batches[0], 0)              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_TIMED_STEPS + 1):
+        state, metrics = step(model, state, batches[i], i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    i = TRAIN_TIMED_STEPS + 1
+    _, traced_s, events, by_name, busy = trace_device(
+        lambda: step(model, state, batches[i], i), "profile_train_step.json")
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = nbytes(*model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = rl.model_flops(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    step_bytes = rl.train_step_bytes(param_bytes, n_params)
+    roof = rl.from_counts(flops, step_bytes, model_flops=flops, peaks=peaks,
+                          compute_peak="bf16_flops")
+    state_bytes = nbytes(*state["m"].values(), *state["v"].values())
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+
+    expected_first = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    row = {
+        "arch": TRAIN_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "params": n_params,
+        "param_bytes": param_bytes, "optimizer_state_bytes": state_bytes,
+        "losses_run_one": l1, "losses_run_two": l2, "losses_run_two_clean": clean,
+        "run_two_stats": stats2, "wall_run_one_s": wall1, "wall_run_two_s": wall2,
+        "first_loss": l1[0], "first_loss_expected": expected_first,
+        "restores": io["restores"], "ckpt_bytes": ckpt_bytes,
+        "ckpt_save_s": io["save_s"], "ckpt_restore_s": io["restore_s"],
+        "compress_losses": lc, "compress_ef": efs,
+        "ms_per_step": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "bound_ms": roof.t_bound * 1e3, "bound_by": roof.bottleneck,
+        "t_compute_ms": roof.t_compute * 1e3, "t_memory_ms": roof.t_memory * 1e3,
+        "flops": flops, "step_bytes": step_bytes,
+        "step_over_bound": step_ms / (roof.t_bound * 1e3),
+        "traced_step_busy_ms": busy, "traced_step_events": len(events),
+        "traced_step_idle_share": 1 - busy / step_ms, "peak_gb": (peak - base) / 1e9,
+        "top_ops": [[name[:90], count, ms] for name, (count, ms) in
+                    sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]]}
+    print(f"train {TRAIN_ARCH} full width ({cfg.num_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params, {cfg.dtype}), batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: run one {l1} ({wall1:.2f} s); run two "
+          f"(resumed at {TRAIN_RESUME_AT}, failure at {TRAIN_FAIL_AT}) {l2} ({wall2:.2f} s, "
+          f"stats {stats2}); run two without the failure {clean}")
+    print(f"train first loss {l1[0]:.4f}: ln V + d 0.02^2 / 2 = {expected_first:.4f} "
+          f"(ln V = {math.log(cfg.vocab_size):.4f}); last loss {l2[-1]:.4f}")
+    print(f"train checkpoint {ckpt_bytes / 1e9:.3f} GB; saves {io['save_s']} s, restores "
+          f"{io['restore_s']} s; restores {io['restores']}")
+    print(f"train compress_grads: losses {lc}; ef after each step {efs}")
+    print(f"train step: {step_ms:.2f} ms per step, {row['tokens_per_s']:.0f} tokens/s (host "
+          f"clock, {TRAIN_TIMED_STEPS} steps after a warm-up); bound {row['bound_ms']:.3f} ms "
+          f"({roof.bottleneck}: 6 N D = {flops:.4e} FLOPs at bf16 "
+          f"{peaks.bf16_flops / 1e12:.0f} TFLOP/s = {row['t_compute_ms']:.3f} ms; "
+          f"{step_bytes / 1e9:.3f} GB at {peaks.mem_bw / 1e12:.2f} TB/s = "
+          f"{row['t_memory_ms']:.3f} ms); step {row['step_over_bound']:.1f}x the bound; traced "
+          f"step: device busy {busy:.2f} ms over {len(events)} device events "
+          f"({traced_s * 1e3:.1f} ms traced wall), idle share "
+          f"{row['traced_step_idle_share']:.3f} of the untraced step; peak device memory "
+          f"{row['peak_gb']:.2f} GB above the model's allocation; on {smi}")
+    for name, count, ms in row["top_ops"]:
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:5d}  {name}")
+
+    reduced = {}
+    for arch in configs.ARCH_IDS:
+        rcfg = reduced_config(arch)
+        cpu = build(rcfg, "cpu").init(torch.Generator().manual_seed(SEED))
+        card = build(rcfg)
+        card.load_state_dict(cpu.state_dict())
+        rdata = SyntheticLMData(DataConfig(rcfg.vocab_size, 32, 2))
+        errs = {"loss": 0.0, "params": 0.0, "params_past_tol": 0}
+        ok = True
+        models = {"cpu": cpu, "card": card}
+        steps = {d: make_train_step(rcfg, AdamW(lr=cosine_schedule(
+            TRAIN_LR, 0, TRAIN_REDUCED_STEPS)), loss_chunk=16) for d in models}
+        states = {d: AdamW().init(dict(m.named_parameters())) for d, m in models.items()}
+        for i in range(TRAIN_REDUCED_STEPS):
+            b = rdata.batch(i, "cpu")
+            if rcfg.frontend != "none":
+                b["frontend"] = torch.randn((2, rcfg.frontend_len, rcfg.frontend_dim),
+                                            generator=torch.Generator().manual_seed(i))
+            losses = {}
+            for d, m in models.items():
+                states[d], met = steps[d](m, states[d],
+                                          {k: v.to(m.device) for k, v in b.items()}, i)
+                losses[d] = float(met["loss"])
+            errs["loss"] = max(errs["loss"], abs(losses["card"] - losses["cpu"]))
+            ok &= abs(losses["card"] - losses["cpu"]) <= TRAIN_CARD_CPU_TOL * abs(losses["cpu"])
+        n_all = 0
+        for a, b in zip(cpu.state_dict().values(), card.state_dict().values()):
+            err = (b.cpu() - a).abs()
+            errs["params"] = max(errs["params"], err.max().item())
+            errs["params_past_tol"] += int((err > TRAIN_CARD_CPU_TOL).sum())
+            n_all += err.numel()
+        ok &= (errs["params_past_tol"] <= TRAIN_CARD_CPU_OUTLIERS * n_all
+               and errs["params"] <= 2 * TRAIN_LR * TRAIN_REDUCED_STEPS)
+        reduced[arch] = {"loss_max_abs_err": errs["loss"], "params_max_abs_err": errs["params"],
+                         "params_past_tol": errs["params_past_tol"], "params": n_all}
+        print(f"train {rcfg.name} (f32) card against CPU, {TRAIN_REDUCED_STEPS} steps: loss max "
+              f"|diff| {errs['loss']:.3e}, updated parameters max |diff| {errs['params']:.3e}, "
+              f"{errs['params_past_tol']} of {n_all} past {TRAIN_CARD_CPU_TOL}")
+        if not ok:
+            raise AssertionError(f"train {rcfg.name}: the card disagrees with the CPU")
+    launches = _build.launch_counts()
+    print(f"train phase kernel launches: {launches}")
+
+    # the checks, after every number is printed
+    if any(launches.values()):
+        raise AssertionError("the training path launched FHE kernels")
+    if not all(math.isfinite(x) for x in l1 + l2 + clean + lc):
+        raise AssertionError("train: a loss is not finite")
+    if abs(l1[0] - expected_first) > TRAIN_FIRST_LOSS_TOL:
+        raise AssertionError(f"train: first loss {l1[0]} is not within {TRAIN_FIRST_LOSS_TOL} "
+                             f"of {expected_first}")
+    if not l2[-1] < l1[0]:
+        raise AssertionError("train: the loss after the last step is not below the first")
+    n_rerun = TRAIN_FAIL_AT - TRAIN_RESUME_AT
+    if len(l2) != TRAIN_STEPS - TRAIN_RESUME_AT + n_rerun or \
+            stats2["failures"] != 4 or len(clean) != TRAIN_STEPS - TRAIN_RESUME_AT:
+        raise AssertionError(f"train: run two took {len(l2)} steps, stats {stats2}")
+    diffs = [abs(a - b) for a, b in zip(l2[n_rerun:], clean)] + \
+        [abs(a - b) for a, b in zip(l2[:n_rerun], l2[n_rerun:2 * n_rerun])]
+    row["restart_max_abs_diff"] = max(diffs)
+    if max(diffs) > TRAIN_RESTART_TOL:
+        raise AssertionError(f"train: run two's losses differ from the run without the "
+                             f"failure by {max(diffs)}")
+    if len(io["restores"]) != 3 or not all(r["bitwise"] for r in io["restores"]):
+        raise AssertionError(f"train: a restored checkpoint differs from the saved one: "
+                             f"{io['restores']}")
+    if len(efs) != TRAIN_COMPRESS_STEPS or not all(e["finite"] and e["max_abs"] > 0
+                                                   for e in efs):
+        raise AssertionError(f"train: compress_grads' error feedback {efs}")
+    return {"full": row, "reduced_card_vs_cpu": reduced, "card_cpu_tol": TRAIN_CARD_CPU_TOL,
+            "card_cpu_outliers": TRAIN_CARD_CPU_OUTLIERS,
+            "restart_tol": TRAIN_RESTART_TOL, "first_loss_tol": TRAIN_FIRST_LOSS_TOL}
+
+
 def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
     """Each kernel on the shapes a round of `cts.shape[0]` rows gives it,
     against its plain version, timed one call at a time and back to
@@ -1464,6 +1764,9 @@ def main() -> int:
 
     # -- the LM stack's serving path, at full width and every reduced config ---
     print(json.dumps({"lm": lm_phase(smi, peaks)}))
+
+    # -- LM training at full width, with a failure and a restore ----------------
+    print(json.dumps({"train": train_phase(smi, peaks)}))
 
     counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
     for row in kernels:

@@ -1,0 +1,2 @@
+"""Atomic, resumable checkpointing."""
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401

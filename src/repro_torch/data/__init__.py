@@ -1,0 +1,2 @@
+"""Deterministic synthetic data pipeline."""
+from repro_torch.data.pipeline import DataConfig, SyntheticLMData  # noqa: F401

@@ -1,5 +1,5 @@
 """Carry key material, ciphertexts, radix integers and LM weights across
-from numpy.
+from numpy, and LM weights (or gradients, moments) back.
 
 The reference keeps torus values as uint64; the port carries the same
 bits as int64 (`ndarray.view(np.int64)`).  These helpers import no JAX:
@@ -109,3 +109,60 @@ def lm_params_from_numpy(model, params: dict):
                                  f"{tuple(state[name].shape)}")
             state[name].copy_(t)
     return model
+
+
+def _lm_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 widened to float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _lm_nest(tree: dict, name: str, value) -> None:
+    *path, leaf = name.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
+
+
+def lm_params_to_numpy(model, tensors: dict | None = None) -> dict:
+    """The inverse of `lm_params_from_numpy`: the reference's param pytree
+    layout (nested dicts, `blocks` stacked on the macro-block axis, then
+    the `tail` list) of numpy arrays.
+
+    tensors: a dict from the model's parameter names to tensors of their
+    shapes (gradients, AdamW moments, ...); by default the model's own
+    parameters.  bfloat16 comes back as float32, which holds it exactly."""
+    cfg = model.cfg
+    period = len(cfg.layer_pattern)
+    n_scan = cfg.num_layers // period
+    if tensors is None:
+        tensors = model.state_dict()
+    names = set(model.state_dict())
+    if set(tensors) != names:
+        raise KeyError(f"tensors do not match the model: missing "
+                       f"{sorted(names - set(tensors))}, unexpected "
+                       f"{sorted(set(tensors) - names)}")
+    out: dict = {}
+    layers: dict = {}
+    for name, t in tensors.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            layers.setdefault(int(i), {})[rest] = _lm_numpy(t)
+        else:
+            _lm_nest(out, name, _lm_numpy(t))
+    if n_scan:
+        blocks: dict = {}
+        for i in range(period):
+            for rest in layers[i]:
+                _lm_nest(blocks, f"l{i}.{rest}",
+                         np.stack([layers[b * period + i][rest] for b in range(n_scan)]))
+        out["blocks"] = blocks
+    tail = []
+    for j in range(n_scan * period, cfg.num_layers):
+        lp: dict = {}
+        for rest, a in layers[j].items():
+            _lm_nest(lp, rest, a)
+        tail.append(lp)
+    if tail:
+        out["tail"] = tail
+    return out

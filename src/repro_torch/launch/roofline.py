@@ -150,6 +150,16 @@ def model_flops(cfg, shape) -> float:
     return 2.0 * n_active * shape.global_batch
 
 
+def train_step_bytes(param_bytes: int, n_params: int, *, compress: bool = False) -> int:
+    """Least device-memory bytes of one train step: the parameters read
+    (forward) and written (update), their gradients written and read (in
+    the parameters' dtype), the f32 AdamW moments `m` and `v` read and
+    written, and with int8 compression the f32 error-feedback buffer read
+    and written.  Activations are left out (they may stay on chip)."""
+    state = 2 * 4 * n_params                # one f32 tensor per param, read + written
+    return 2 * param_bytes + 2 * param_bytes + 2 * state + (state if compress else 0)
+
+
 @dataclasses.dataclass
 class PbsRoundModel:
     """Analytic per-round traffic model of one fused `lut_batch` round.

@@ -6,21 +6,24 @@ are allocated on the device but not yet initialised:
 
     init(generator)                   -> the model, initialised in place
     forward(tokens, frontend)         -> ((B, S, d) final hidden, MoE aux)
+    loss(batch)                       -> scalar (chunked CE, no (B, S, V))
     init_cache(batch, max_len)        -> decode cache (one dict per layer)
     decode_step(cache, tokens, pos)   -> (logits, cache), cache written in place
 
 Layers are one flat `ModuleList`: the reference's ``L // period``
 macro-blocks of ``period = len(cfg.layer_pattern)`` layers (its scanned,
 stacked params), then the ``L % period`` tail.  Every sub-layer is
-pre-norm residual; MoE configs replace the dense MLP.  `Model.loss`
-(chunked cross-entropy) belongs to the training path, not ported here.
+pre-norm residual; MoE configs replace the dense MLP.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -31,6 +34,22 @@ from repro_torch.models import ssd as S
 F32 = torch.float32
 POS_SENTINEL = 1 << 30  # unwritten KV slots: fails the causal mask
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# matmuls without batch dimensions: what the reference's "dots" remat policy
+# (`dots_with_no_batch_dims_saveable`) keeps for the backward pass
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _chunk_loss(hx, lx, head):
+    """Summed cross-entropy of one chunk: logsumexp - gold, over f32 logits
+    (both operands cast to f32: bf16 products are exact in f32)."""
+    logits = hx.to(F32) @ head.to(F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
 
 
 class Layer(nn.Module):
@@ -138,6 +157,28 @@ class Model(nn.Module):
             layer.init(generator)
         return self
 
+    def reference_leaf(self, name: str) -> str:
+        """The leaf of the reference's param pytree that holds parameter
+        `name`: a scanned layer's tensors stack on the macro-block axis
+        into one leaf, "blocks.l<i % period>.<rest>"; any other parameter
+        is a leaf of its own.  The reference's optimizer and gradient
+        compression work leaf by leaf, so the port groups by this."""
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            period = len(self.cfg.layer_pattern)
+            if int(i) < self.cfg.num_layers // period * period:
+                return f"blocks.l{int(i) % period}.{rest}"
+        return name
+
+    def decay_mask(self) -> dict:
+        """{parameter name: whether AdamW decays it}, as the reference
+        decides: it decays every leaf with two or more dimensions, and a
+        scanned layer's leaf carries the macro-block axis, so a scanned
+        layer's norm scales and biases are decayed and those of the tail
+        layers and the top level are not."""
+        return {name: p.ndim + (self.reference_leaf(name) != name) >= 2
+                for name, p in self.named_parameters()}
+
     # ---- embedding / unembedding -------------------------------------------
     def _embed(self, tokens, frontend=None):
         cfg = self.cfg
@@ -155,18 +196,51 @@ class Model(nn.Module):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     # ---- forward -----------------------------------------------------------
-    def forward(self, tokens, frontend=None):
-        """tokens (B, S) -> final hidden (B, S, d), plus the MoE aux loss."""
+    def forward(self, tokens, frontend=None, *, remat: bool = False,
+                remat_policy: str = "full"):
+        """tokens (B, S) -> final hidden (B, S, d), plus the MoE aux loss.
+
+        remat: each layer runs under `torch.utils.checkpoint`, so the
+        backward pass recomputes its activations.  remat_policy "full"
+        recomputes everything (least memory); "dots" keeps the outputs of
+        the matmuls without batch dimensions, as the reference's policy
+        does.  Serving calls this without remat; `loss` with it, as the
+        reference's `loss` does."""
         cfg = self.cfg
         B, Sq = tokens.shape
         pos = torch.arange(Sq, dtype=torch.int32, device=tokens.device)[None].expand(B, Sq)
         x = self._embed(tokens, frontend)
         aux = torch.zeros((), dtype=F32, device=x.device)
+        if remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy {remat_policy!r}: 'full' or 'dots'")
+        kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                               _save_dots)}
+              if remat_policy == "dots" else {})
         for layer in self.layers:
-            x, a = layer(x, pos)
+            x, a = (checkpoint(layer, x, pos, use_reentrant=False, **kw) if remat
+                    else layer(x, pos))
             aux = aux + a
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps, plus_one=cfg.embed_scale)
         return x, aux
+
+    # ---- loss (chunked CE over the head) -------------------------------------
+    def loss(self, batch: dict, *, loss_chunk: int = 512, aux_weight: float = 0.01):
+        """batch: {"tokens": (B, S) int, "labels": (B, S) int, optional
+        "frontend"}.  The forward runs with remat; the sequence is cut
+        into chunks of `loss_chunk` positions whose logits the backward
+        pass recomputes, so (B, S, V) is never held.  Returns the mean
+        token cross-entropy plus `aux_weight` times the MoE aux loss."""
+        labels = batch["labels"]
+        h, aux = self.forward(batch["tokens"], batch.get("frontend"), remat=True)
+        head = self.head()
+        B, Sq, _ = h.shape
+        C = min(loss_chunk, Sq)
+        if Sq % C:
+            raise ValueError(f"loss_chunk {C} does not divide the sequence's {Sq}")
+        sums = [checkpoint(_chunk_loss, h[:, i:i + C], labels[:, i:i + C], head,
+                           use_reentrant=False)
+                for i in range(0, Sq, C)]
+        return torch.sum(torch.stack(sums)) / (B * Sq) + aux_weight * aux
 
     # ---- decode -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list:

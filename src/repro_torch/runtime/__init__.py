@@ -1,5 +1,6 @@
-"""Runtime policies the serving stack uses: fault-tolerant step
-execution (`StepRunner`, `FaultConfig`) and elastic per-shard admission
-(`ElasticPolicy`, `ElasticAdmission`)."""
+"""Runtime policies: fault-tolerant step execution (`StepRunner`,
+`FaultConfig`), elastic per-shard admission (`ElasticPolicy`,
+`ElasticAdmission`) and int8 gradient compression (`Int8Compressor`)."""
+from repro_torch.runtime.compress import Int8Compressor  # noqa: F401
 from repro_torch.runtime.elastic import ElasticAdmission, ElasticPolicy  # noqa: F401
 from repro_torch.runtime.fault import FaultConfig, StepRunner  # noqa: F401

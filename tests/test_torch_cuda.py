@@ -18,7 +18,15 @@ stack's reduced configs (f32) give the CPU's forward hidden states and
 decode logits within 1e-4 (summation order, carried by the
 recurrences), and a full-width bf16 decode step the forward's logits
 within an eighth of their largest magnitude (bf16 rounding over 2L
-sub-layers; `chip_smoke.py`'s LM_BF16_TOL).
+sub-layers; `chip_smoke.py`'s LM_BF16_TOL).  A reduced train step on the
+card gives the CPU's loss (1e-4 relative) and updated parameters (1e-4
+absolute but for a 1e-4 share of the elements, each within two steps of
+lr: Adam's first step moves a parameter by lr g / (|g| + eps), so a
+gradient near zero turns its rounding into a share of a whole step;
+`chip_smoke.py`'s TRAIN_CARD_CPU_OUTLIERS); checkpoints restore card
+tensors bit for bit; the
+int8 compressor's `q` equals the CPU's away from rounding ties
+(tests/test_torch_train.py's rule).
 """
 import pytest
 
@@ -43,6 +51,13 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.launch.train import reduced_config  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.model import POS_SENTINEL  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.runtime import Int8Compressor  # noqa: E402
 
 
 @pytest.fixture
@@ -482,3 +497,75 @@ def test_full_width_qwen3_decode_step_bf16(gen):
     assert (cache[0]["pos"][:, 1:] == POS_SENTINEL).all()
     want = make_prefill_step(cfg)(model, {"tokens": toks})
     assert (logits - want).abs().max() <= 0.125 * want.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-moe-a2.7b", "mamba2-130m"])
+def test_reduced_train_step_card_against_cpu(gen, arch):
+    """One train step of a reduced config (f32) on the card and on the CPU
+    from the same weights and batch."""
+    cfg = reduced_config(arch)
+    cpu = build(cfg, "cpu").init(torch.Generator().manual_seed(5))
+    card = build(cfg)
+    card.load_state_dict(cpu.state_dict())
+    batch = SyntheticLMData(DataConfig(cfg.vocab_size, 32, 2)).batch(0, "cpu")
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        opt = AdamW(lr=cosine_schedule(3e-3, 0, 2))
+        state = opt.init(dict(model.named_parameters()))
+        state, metrics = make_train_step(cfg, opt, loss_chunk=16)(
+            model, state, {k: v.to(model.device) for k, v in batch.items()}, 0)
+        out[name] = metrics["loss"].item()
+        assert state["m"]["embed"].device == model.device
+    assert abs(out["card"] - out["cpu"]) <= 1e-4 * abs(out["cpu"])
+    err = torch.cat([(b.cpu() - a).abs().flatten()
+                     for a, b in zip(cpu.state_dict().values(), card.state_dict().values())])
+    assert (err > 1e-4).sum().item() <= 1e-4 * err.numel() and err.max().item() <= 2 * 3e-3
+
+
+def test_checkpoint_round_trip_of_bf16_card_tensors(gen, tmp_path):
+    w = torch.randn((64, 48), generator=gen, device="cuda").to(torch.bfloat16)
+    m = torch.randn((64, 48), generator=gen, device="cuda")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, {"model": {"w": w}, "m": {"w": m}})
+    like = {"model": {"w": torch.zeros_like(w)}, "m": {"w": torch.zeros_like(m)}}
+    got, step = mgr.restore(like)
+    assert step == 3 and got["model"]["w"].is_cuda and got["model"]["w"].dtype == torch.bfloat16
+    assert torch.equal(got["model"]["w"].view(torch.int16), w.view(torch.int16))
+    assert torch.equal(got["m"]["w"].view(torch.int32), m.view(torch.int32))
+
+
+def test_int8_compressor_card_against_cpu(gen):
+    comp = Int8Compressor()
+    g = {"a": torch.randn((512, 256), generator=gen, device="cuda") * 1e-3,
+         "b": torch.randn((256,), generator=gen, device="cuda")}
+    ef = {k: torch.randn(v.shape, generator=gen, device="cuda") * 1e-5 for k, v in g.items()}
+    out, new_ef = comp.roundtrip(g, ef)
+    out_cpu, ef_cpu = comp.roundtrip({k: v.cpu() for k, v in g.items()},
+                                     {k: v.cpu() for k, v in ef.items()})
+    for k in g:
+        q, scale, _ = comp.compress(g[k], ef[k])
+        q_cpu, scale_cpu, _ = comp.compress(g[k].cpu(), ef[k].cpu())
+        assert q.is_cuda and q.dtype == torch.int8
+        assert abs(scale.item() - scale_cpu.item()) <= 1e-6 * scale_cpu.item()
+        r = (g[k] + ef[k]).cpu().double() / scale_cpu.item()
+        away = ((r - r.floor()).sub(0.5).abs() >= 2e-4)
+        diff = (q.cpu().int() - q_cpu.int()).abs()
+        assert (diff[away] == 0).all() and (diff <= 1).all()
+        err = (new_ef[k].cpu() - ef_cpu[k]).abs()
+        assert (err[away] <= 2e-4 * scale_cpu.item()).all()
+        assert torch.isfinite(new_ef[k]).all()
+
+
+def test_resolve_device_refuses_a_silent_cpu_run(gen, monkeypatch):
+    """With a card, the entry points default to it; told there is none,
+    they raise instead of running on the CPU."""
+    assert resolve_device().type == "cuda"
+    assert SyntheticLMData(DataConfig(64, 8, 2)).batch(0)["tokens"].is_cuda
+    losses, _ = train("qwen3-0.6b", steps=2, batch=2, seq=32, log_every=100)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train("qwen3-0.6b", steps=1, batch=2, seq=32)
+

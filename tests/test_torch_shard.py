@@ -155,25 +155,45 @@ def three_adds(jic4):
     return m, encs, wants
 
 
+def reference_wave(ctx, engine, jic, jobs, wants, port_counts, **kw) -> dict:
+    """The reference's counts for a wave, undisturbed: its runtime starts
+    each worker as it admits it, so under load a worker can reach its
+    first PBS before the next admission registers and lead a round alone,
+    splitting the wave (ROADMAP queue C).  Up to three runs, each decrypting
+    to `wants`; the counts of the run with the fewest fused rounds, the
+    first run that equals the port's ending the search (no split wave has
+    fewer rounds than an undisturbed one)."""
+    best = None
+    for _ in range(3):
+        jrt, jouts = serve_wave(jserve.ServeRuntime, ctx, engine, jobs, **kw)
+        assert [jserve.decrypt_radix_output(jic, o, BITS)[0] for o in jouts] == wants
+        counts = sched_counts(jrt)
+        if best is None or counts["fused_rounds"] < best["fused_rounds"]:
+            best = counts
+        if best == port_counts:
+            break
+    return best
+
+
 def test_ks_dedup_on_off_decrypts_identical(ctx_4bit, engine_4bit, tctx_4bit, engine4,
-                                            ic4, three_adds):
+                                            ic4, jic4, three_adds):
     """A radix-add wave batches [digits, digits] against [msg, carry]
     tables every ripple round, so KS-level dedup fires; off, no decrypt
     changes and the round structure stays.  The port's counts are the
-    reference's in both settings."""
+    reference's undisturbed ones in both settings."""
     m, encs, wants = three_adds
     jg = jserve.radix_binop_program("radix_add", BITS, m)
     g = serve.radix_binop_program("radix_add", BITS, m)
     counts = {}
     for ks in (True, False):
-        jrt, _ = serve_wave(jserve.ServeRuntime, ctx_4bit, engine_4bit,
-                            [(f"c{i}", jg, e) for i, e in enumerate(encs)], ks_dedup=ks)
         rt, outs = serve_wave(serve.ServeRuntime, tctx_4bit, engine4,
                               [(f"c{i}", g, to_port(e)) for i, e in enumerate(encs)],
                               ks_dedup=ks)
         assert [serve.decrypt_radix_output(ic4, o, BITS)[0] for o in outs] == wants
         counts[ks] = sched_counts(rt)
-        assert counts[ks] == sched_counts(jrt)
+        assert counts[ks] == reference_wave(ctx_4bit, engine_4bit, jic4,
+                                            [(f"c{i}", jg, e) for i, e in enumerate(encs)],
+                                            wants, counts[ks], ks_dedup=ks)
     assert counts[True]["ks_dedup_hits"] > 0 and counts[False]["ks_dedup_hits"] == 0
     assert counts[True]["fused_rounds"] == counts[False]["fused_rounds"]
     assert counts[True]["dispatched_luts"] == counts[False]["dispatched_luts"]
