@@ -122,15 +122,34 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    device memory, the checkpoint's size and save / restore seconds.  Then
    every reduced config (f32) takes TRAIN_REDUCED_STEPS train steps on
    the card and on the CPU from the same weights and batches, within
-   TRAIN_CARD_CPU_TOL.  The path launches none of the four kernels.
+   TRAIN_CARD_CPU_TOL.  The path launches none of the four kernels;
+13. a fused round past the 65,535 rows a launch puts on its grid:
+   `lut_batch_tables` at TEST_PARAMS on GRID_ROWS_B rows (65,600 FFT
+   digit rows) must decrypt to its tables, launch the forward transform
+   once per slice of the batch (two per CMux step) and decrypt like the
+   reference engine on its first GRID_ROWS_SAMPLE rows;
+14. the multi-device paths on one card (`mesh_phase`): the engine's
+   cluster mesh at gpt2, 4 clusters of 12 on the card (the reference
+   backend, the only one a mesh takes), a 48-row round bit-identical to
+   the one-device reference engine on each cluster's 12 rows and
+   decrypt-identical to its one 48-row round (the card's FFT and einsum
+   round 48 rows otherwise than 12), and a 45-row round padded by 3, with
+   walls, device busy time and peak memory (the keys held once);
+   `ConfigError` for the fused backend with a mesh; `build_shards` on a
+   2-device set (a mesh engine for `reference`, a one-device engine for
+   `fused`, one round each); then one NCCL rank: MESH_TRAIN_STEPS full-
+   width qwen3-0.6b train steps through DTensor placements against the
+   same steps without a process group (losses, ms per step), `serve`
+   both ways (greedy tokens equal, the logits' gap) and GPipe at one
+   stage against the sequential stage.
 
 Prints the card, the build time, a line per phase, a `{"cmux_accuracy":
 ...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}`, a `{"serve": ...}`, an
 `{"xpu": ...}`, a `{"sim": ...}` and a `{"kernels": ...}` JSON line and,
 last,
-`{"ok": true, "device": {...}}`, with an `{"lm": ...}` and a `{"train":
-...}` line before the `{"kernels": ...}` one.  Any failure raises and
-exits nonzero.
+`{"ok": true, "device": {...}}`, with an `{"lm": ...}`, a `{"train":
+...}` and a `{"grid_rows": ..., "mesh": ...}` line before the
+`{"kernels": ...}` one.  Any failure raises and exits nonzero.
 Needs CUDA; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -224,6 +243,25 @@ TRAIN_REDUCED_STEPS = 2
 TRAIN_LR = 3e-3
 TRAIN_CARD_CPU_TOL = 1e-4
 TRAIN_CARD_CPU_OUTLIERS = 1e-4
+# The grid rows phase: a fused round at TEST_PARAMS whose B K level FFT
+# digit rows (65,600) pass the 65,535 a launch puts on its grid, and the
+# reference engine on its first rows.
+GRID_ROWS_B, GRID_ROWS_SAMPLE = 16400, 64
+# The mesh phase: the paper's 4 clusters of 12 on one card; the LM mesh
+# path at world size 1 for MESH_TRAIN_STEPS train steps (TRAIN_ARCH at
+# TRAIN_BATCH x TRAIN_SEQ) and a MESH_SERVE decode, against the same runs
+# without a process group.  One rank holds every shard, so the DTensor
+# path runs the one-device path's local ops: its losses should be equal;
+# MESH_LOSS_TOL (relative, a bf16 step's rounding) bounds a gap from
+# another op order, which the phase prints.
+MESH_CLUSTERS = 4
+MESH_TRAIN_STEPS = 5
+MESH_SERVE = dict(batch=4, prompt_len=32, gen=8)
+MESH_LOSS_TOL = 1e-3
+# GPipe at one stage against the stage on the whole batch: the reference
+# test's bound (f32; the card's GEMMs round a 2-row microbatch otherwise
+# than the 16-row batch).
+GPIPE_TOL = 1e-5
 
 
 def cuda_ms(fn, reps: int = REPEATS) -> float:
@@ -1411,6 +1449,287 @@ def train_phase(smi: str, peaks) -> dict:
             "restart_tol": TRAIN_RESTART_TOL, "first_loss_tol": TRAIN_FIRST_LOSS_TOL}
 
 
+def grid_rows_phase(smi: str, device: str = "cuda") -> dict:
+    """A fused round past the grid's 65,535 rows: `lut_batch_tables` at
+    TEST_PARAMS with GRID_ROWS_B rows (B K level digit rows, more than one
+    launch can hold), which must decrypt to its tables, launch each FFT
+    once per slice of the batch (`fourstep_fft.row_slices`), and decrypt
+    like the reference engine on its first GRID_ROWS_SAMPLE rows."""
+    import torch
+    from repro_torch.core.engine import TaurusEngine
+    from repro_torch.core.params import TEST_PARAMS as p
+    from repro_torch.core.pbs import TFHEContext
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fourstep_fft import row_slices
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ctx = TFHEContext.create(gen, p, device=device)
+    eng = TaurusEngine.from_context(ctx, device=device)
+    mod = p.plaintext_modulus
+    msgs = torch.arange(GRID_ROWS_B, device=device) % mod
+    cts = ctx.encrypt(gen, msgs)
+    tables = (torch.arange(mod)[None, :] * (torch.arange(GRID_ROWS_B)[:, None] % 3 + 1)
+              + torch.arange(GRID_ROWS_B)[:, None]) % mod
+    want = tables[torch.arange(GRID_ROWS_B), msgs.cpu()]
+    K, J = p.k + 1, (p.k + 1) * p.pbs_level
+    plan = {"fft_forward": len(row_slices(GRID_ROWS_B, J)),
+            "fft_inverse": len(row_slices(GRID_ROWS_B, K)),
+            "external_product_mac": 1, "keyswitch_mac": 1}
+    eng.fused_pack
+    sync(device)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.lut_batch_tables(cts, tables)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    got = ctx.decrypt(out).cpu()
+    ref = TaurusEngine.from_context(ctx, device=device, kernel_backend="reference")
+    s = GRID_ROWS_SAMPLE
+    ref_got = ctx.decrypt(ref.lut_batch_tables(cts[:s], tables[:s])).cpu()
+    per_round = {k: v if k == "keyswitch_mac" else v * p.n for k, v in plan.items()}
+    row = {"params": p.name, "rows": GRID_ROWS_B, "digit_rows": GRID_ROWS_B * J,
+           "wall_s": wall, "launches": launches, "launches_planned": per_round,
+           "wrong": int((got != want).sum()), "sample_rows": s,
+           "sample_matches_reference": bool(torch.equal(ref_got, got[:s]))}
+    print(f"grid rows: fused lut_batch_tables at {p.name}, {GRID_ROWS_B} rows = "
+          f"{GRID_ROWS_B * J} FFT digit rows (one launch holds 65,535): {wall:.3f} s, "
+          f"{row['wrong']} of {GRID_ROWS_B} decrypt wrong, launches {launches} (planned "
+          f"{per_round}: {plan['fft_forward']} forward slices per CMux step), reference "
+          f"engine on the first {s} rows {'equal' if row['sample_matches_reference'] else 'DIFFERS'}"
+          f" on {smi}")
+    if row["wrong"] or launches != per_round or not row["sample_matches_reference"]:
+        raise AssertionError(f"grid rows: {row}")
+    return row
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_phase(ctx, smi: str, device: str = "cuda", arch_reduced: bool = False) -> dict:
+    """The multi-device paths on one card.
+
+    The engine's cluster mesh: `TaurusEngine.from_context(ctx,
+    mesh=shard_mesh((device,) * 4))` (the reference backend, the only one a
+    mesh takes) must report 4 clusters and a batch of 48, run a 48-row
+    `lut_batch_tables` round that decrypts to its tables, equals the
+    one-device reference engine on each cluster's 12 rows bit for bit and
+    decrypts as its 48-row round does, and a 45-row round padded by
+    3 (telemetry's padded counter 3, `out[:45]` right); the fused backend
+    with a mesh must raise `ConfigError`; `build_shards` on a 2-device set
+    must give a mesh engine for `reference` and a one-device engine for
+    `fused`, each running one round.  Then the LM stack's mesh path at
+    world size 1 (one NCCL rank, FileStore under `build/`): MESH_TRAIN_STEPS
+    train steps of qwen3-0.6b at full width through DTensor placements
+    against the same steps without a process group, `serve` at MESH_SERVE
+    tokens both ways, and GPipe over one stage against the sequential run."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.engine import ConfigError, TaurusEngine
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import shard_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.models.pipeline import make_pipelined_fwd
+    from repro_torch.obs import Telemetry
+    from repro_torch.runtime.fault import StepRunner
+    from repro_torch.serve import build_shards
+
+    p = ctx.params
+    dev = torch.device(device)
+    res = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    mod = p.plaintext_modulus
+    rows = MESH_CLUSTERS * 12
+    msgs = torch.randint(0, mod, (rows,), generator=gen, device=device)
+    cts = ctx.encrypt(gen, msgs)
+    tables = torch.stack([torch.randperm(mod, generator=torch.Generator().manual_seed(SEED + r))
+                          for r in range(rows)])
+    want = tables[torch.arange(rows), msgs.cpu()]
+
+    _build.reset_launch_counts()
+    sync(device)
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    mesh_eng = TaurusEngine.from_context(ctx, mesh=shard_mesh((dev,) * MESH_CLUSTERS))
+    added = (torch.cuda.memory_allocated() if dev.type == "cuda" else 0) - base
+    one = TaurusEngine.from_context(ctx, device=device, kernel_backend="reference")
+    if (mesh_eng.n_clusters, mesh_eng.batch_size) != (MESH_CLUSTERS, 12 * MESH_CLUSTERS):
+        raise AssertionError(f"mesh engine: {mesh_eng.n_clusters} clusters, batch "
+                             f"{mesh_eng.batch_size}")
+
+    def timed(run):
+        sync(device)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run()
+        sync(device)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        return out, wall, peak
+
+    out_m, wall_m, peak_m = timed(lambda: mesh_eng.lut_batch_tables(cts, tables))
+    out_1, wall_1, peak_1 = timed(lambda: one.lut_batch_tables(cts, tables))
+    # the one-device engine on each cluster's rows: the same batches
+    out_c, wall_c, _ = timed(lambda: torch.cat([
+        one.lut_batch_tables(cts[i:i + 12], tables[i:i + 12]) for i in range(0, rows, 12)]))
+    _, _, events_m, _, busy_m = trace_device(lambda: mesh_eng.lut_batch_tables(cts, tables),
+                                             "profile_mesh_round.json")
+    got = ctx.decrypt(out_m).cpu()
+    res["round48"] = {"rows": rows, "clusters": mesh_eng.n_clusters,
+                      "batch_size": mesh_eng.batch_size, "wall_s": wall_m,
+                      "one_device_wall_s": wall_1, "busy_ms": busy_m,
+                      "device_events": len(events_m), "idle_share": 1 - busy_m / (wall_m * 1e3),
+                      "peak_gb": peak_m / 1e9, "one_device_peak_gb": peak_1 / 1e9,
+                      "key_copies": len(mesh_eng._keys), "engine_alloc_bytes": added,
+                      "one_device_by_cluster_wall_s": wall_c,
+                      "wrong": int((got != want).sum()),
+                      "bit_identical": bool(torch.equal(out_m, out_c)),
+                      "decrypts_as_one_device_48": bool(torch.equal(
+                          ctx.decrypt(out_1).cpu(), got)),
+                      "words_differing_48": int((out_m != out_1).sum()),
+                      "words": out_m.numel()}
+    tel = Telemetry()
+    mesh_eng.telemetry = tel
+    pad_rows = rows - 3
+    out_p, wall_p, _ = timed(lambda: mesh_eng.lut_batch_tables(cts[:pad_rows], tables[:pad_rows]))
+    mesh_eng.telemetry = None
+    c = tel.snapshot()["counters"]
+    res["round45"] = {"rows": pad_rows, "wall_s": wall_p, "pbs_rows": c["engine.pbs_rows"],
+                      "padded": c["engine.pbs_rows_padded"], "out_rows": int(out_p.shape[0]),
+                      "wrong": int((ctx.decrypt(out_p).cpu() != want[:pad_rows]).sum())}
+    mesh_launches = _build.launch_counts()
+    try:
+        TaurusEngine.from_context(ctx, mesh=shard_mesh((dev,) * 2), kernel_backend="fused")
+        refused = False
+    except ConfigError:
+        refused = True
+    r = res["round48"]
+    print(f"mesh engine ({MESH_CLUSTERS} clusters on {device}, reference backend): n_clusters "
+          f"{r['clusters']}, batch_size {r['batch_size']}; {rows}-row round {wall_m:.3f} s "
+          f"(device busy {busy_m:.1f} ms over {len(events_m)} device events, idle share "
+          f"{r['idle_share']:.3f}), one-device reference round {wall_1:.3f} s; "
+          f"{r['wrong']} of {rows} decrypt wrong; bit-identical to the one-device engine on "
+          f"each cluster's 12 rows ({wall_c:.3f} s): {r['bit_identical']}; against its one "
+          f"{rows}-row round: decrypts equal {r['decrypts_as_one_device_48']}, "
+          f"{r['words_differing_48']} of {r['words']} words differ (the card's FFT and "
+          f"einsum pick their kernels by batch size: 12 rows round otherwise than 48); peak memory {peak_m / 1e9:.2f} GB (one device "
+          f"{peak_1 / 1e9:.2f}); key copies {r['key_copies']}, the mesh engine allocated "
+          f"{added} bytes; {pad_rows}-row round {wall_p:.3f} s, pbs_rows {res['round45']['pbs_rows']}"
+          f", padded {res['round45']['padded']}, {res['round45']['wrong']} wrong; launches "
+          f"{mesh_launches}; fused + mesh raises ConfigError: {refused} on {smi}")
+
+    _build.reset_launch_counts()
+    shards = {}
+    for kb in ("reference", "fused"):
+        eng = build_shards(ctx, n_shards=1, device_sets=[(dev,) * 2], kernel_backend=kb)[0].engine
+        before = _build.launch_counts()
+        o, wall, _ = timed(lambda: eng.lut_batch_tables(cts[:12], tables[:12]))
+        after = _build.launch_counts()
+        shards[kb] = {"clusters": eng.n_clusters, "mesh": eng.mesh is not None,
+                      "wall_s": wall, "launches": {k: after[k] - before[k] for k in after},
+                      "wrong": int((ctx.decrypt(o).cpu() != want[:12]).sum())}
+        print(f"build_shards on a 2-device set, {kb}: mesh engine {eng.mesh is not None}, "
+              f"{eng.n_clusters} clusters; 12-row round {wall:.3f} s, "
+              f"{shards[kb]['wrong']} wrong, launches {shards[kb]['launches']}")
+    res["shards"] = shards
+    res["launches"] = {"mesh_round": mesh_launches, "fused_shard": shards["fused"]["launches"]}
+
+    # -- the LM stack's mesh path at world size 1 ------------------------------
+    durations = []
+    run_step = StepRunner.run
+
+    def timed_run(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = run_step(self, *a, **kw)
+        durations.append(time.perf_counter() - t0)
+        return out
+
+    kw = dict(reduced=arch_reduced, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=100,
+              device=device)
+    lm = {}
+    StepRunner.run = timed_run
+    try:
+        plain_losses, _ = train(TRAIN_ARCH, steps=MESH_TRAIN_STEPS, **kw)
+        plain_s, durations[:] = list(durations), []
+        plain_serve = serve(TRAIN_ARCH, reduced=arch_reduced, device=device, **MESH_SERVE)
+        store = tempfile.mkdtemp(dir=ROOT / "build", prefix="mesh_store_")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.FileStore(os.path.join(store, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh_losses, _ = train(TRAIN_ARCH, steps=MESH_TRAIN_STEPS, model_parallel=1, **kw)
+            mesh_s = list(durations)
+            mesh_serve = serve(TRAIN_ARCH, reduced=arch_reduced, device=device,
+                               model_parallel=1, **MESH_SERVE)
+            from torch.distributed.device_mesh import init_device_mesh
+            pod = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+            g = torch.Generator().manual_seed(SEED)
+            W = (torch.randn((1, 64, 64), generator=g) / 8).to(device)
+            x = torch.randn((16, 8, 64), generator=g).to(device)
+            stage = lambda w, h: torch.tanh(h @ w)
+            piped = make_pipelined_fwd(stage, pod, n_micro=8)(W[:, None], x)
+            pipe_err = (piped - stage(W[0], x)).abs().max().item()
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+    finally:
+        StepRunner.run = run_step
+    gap = max(abs(a - b) for a, b in zip(mesh_losses, plain_losses))
+    logit_gap = (mesh_serve.logits.float() - plain_serve.logits.float()).abs().max().item()
+    steady = lambda s: statistics.median(s[1:]) * 1e3
+    lm = {"arch": TRAIN_ARCH, "reduced": arch_reduced, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "plain_losses": plain_losses, "mesh_losses": mesh_losses, "loss_gap": gap,
+          "plain_step_s": plain_s, "mesh_step_s": mesh_s,
+          "plain_ms_per_step": steady(plain_s), "mesh_ms_per_step": steady(mesh_s),
+          "serve_tokens_equal": bool((mesh_serve.tokens == plain_serve.tokens).all()),
+          "serve_logit_gap": logit_gap, "serve_decode_s": {
+              "plain": plain_serve.decode_s, "mesh": mesh_serve.decode_s},
+          "pipeline_err": pipe_err}
+    res["lm"] = lm
+    print(f"mesh LM ({TRAIN_ARCH}, world size 1, DTensor placements): losses {mesh_losses} "
+          f"against {plain_losses} without a process group, largest gap {gap:.3e}; ms per "
+          f"step (median of steps 2-{MESH_TRAIN_STEPS}) {lm['mesh_ms_per_step']:.1f} against "
+          f"{lm['plain_ms_per_step']:.1f} (each step's s: mesh {mesh_s}, plain {plain_s}); "
+          f"serve {MESH_SERVE}: tokens equal {lm['serve_tokens_equal']}, logits max |diff| "
+          f"{logit_gap:.3e}, decode {mesh_serve.decode_s:.2f} s against "
+          f"{plain_serve.decode_s:.2f} s; GPipe at one stage max |diff| {pipe_err:.3e} on {smi}")
+
+    # the checks, after every number is printed
+    bad = []
+    if r["wrong"] or not r["bit_identical"] or not r["decrypts_as_one_device_48"] or \
+            r["key_copies"] != 1:
+        bad.append(f"the {rows}-row mesh round: {r}")
+    if res["round45"]["wrong"] or res["round45"]["padded"] != 3 or \
+            res["round45"]["pbs_rows"] != rows or res["round45"]["out_rows"] != pad_rows:
+        bad.append(f"the padded mesh round: {res['round45']}")
+    if any(mesh_launches.values()):
+        bad.append(f"the reference mesh rounds launched kernels: {mesh_launches}")
+    if not refused:
+        bad.append("fused + mesh did not raise ConfigError")
+    if not (shards["reference"]["mesh"] and shards["reference"]["clusters"] == 2
+            and not shards["fused"]["mesh"] and not shards["reference"]["wrong"]
+            and not shards["fused"]["wrong"]
+            and not any(shards["reference"]["launches"].values())
+            and shards["fused"]["launches"] == {"keyswitch_mac": 1, "fft_forward": p.n,
+                                                "fft_inverse": p.n,
+                                                "external_product_mac": p.n}):
+        bad.append(f"build_shards: {shards}")
+    if gap > MESH_LOSS_TOL * max(abs(x) for x in plain_losses) or \
+            not all(math.isfinite(x) for x in mesh_losses):
+        bad.append(f"mesh train losses {mesh_losses} against {plain_losses}")
+    if not lm["serve_tokens_equal"] or pipe_err > GPIPE_TOL:
+        bad.append(f"mesh serve tokens equal {lm['serve_tokens_equal']}, GPipe {pipe_err}")
+    if bad:
+        raise AssertionError("mesh phase: " + "; ".join(bad))
+    return res
+
+
 def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
     """Each kernel on the shapes a round of `cts.shape[0]` rows gives it,
     against its plain version, timed one call at a time and back to
@@ -1768,6 +2087,11 @@ def main() -> int:
     # -- LM training at full width, with a failure and a restore ----------------
     print(json.dumps({"train": train_phase(smi, peaks)}))
 
+    # -- a fused round past the grid's rows; the multi-device paths on one card ----
+    grid = grid_rows_phase(smi)
+    meshed = mesh_phase(ctx, smi)
+    print(json.dumps({"grid_rows": grid, "mesh": meshed}))
+
     counter = {"fft_forward_digits": "fft_forward", "fft_inverse_torus": "fft_inverse"}
     for row in kernels:
         key = counter.get(row["name"], row["name"])
@@ -1792,6 +2116,8 @@ def main() -> int:
                                                      "bound_ms", "bound_by", "library_ms")})
         row["launches_xpu"] = {name: r["launches"][key] for name, r in xpu["runs"].items()}
         row["launches_sim"] = simmed["launches"][key]
+        row["launches_mesh"] = {name: at[key] for name, at in meshed["launches"].items()}
+        row["launches_grid_rows"] = grid["launches"][key]
         for tag, at in (("xpu1", xpu["kernels_1row"]), ("sim", simmed["kernels"])):
             m = at.get(row["name"])
             if m is not None:   # the XPU pass's one-row rounds; the sim's largest

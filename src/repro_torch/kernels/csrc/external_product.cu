@@ -110,7 +110,8 @@ extern "C" {
 
 // dig (B, 2, J, F), bsk (2, J, K, F), out (B, 2, K, F): contiguous f64 on
 // the current device.  J = K * level for K = k+1 in {1, 2, 3} and level in
-// {1, 2, 3}; any other shape returns cudaErrorInvalidValue.
+// {1, 2, 3}; any other shape returns cudaErrorInvalidValue.  B <= 2 * 65,535
+// (row groups go on grid y): the Python wrapper slices larger batches.
 int external_product_mac_launch(const void* dig, const void* bsk, void* out,
                                 int B, int J, int K, int F, void* stream) {
   auto d = static_cast<const double*>(dig);

@@ -502,7 +502,8 @@ cudaError_t launch_one(const Args& a, int rows, cudaStream_t st) {
   return cudaLaunchKernelEx(&cfg, fft_kernel<LOG_M, MODE>, a);
 }
 
-// N a power of two in [8, 65536]; rows = B * a.J.
+// N a power of two in [8, 65536]; rows = B * a.J, at most 65,535 (they go on
+// grid y): the Python wrappers cut a larger batch into slices (`row_slices`).
 template <int MODE>
 int dispatch(int N, int rows, const Args& a, void* stream) {
   int log_m = 0;

@@ -17,13 +17,20 @@ The block shape is the best of `kernels/mac_sweep.py` on the card, which
 builds variants of the kernel's source with other shapes.
 
 `external_product_mac` launches the kernel for CUDA tensors and runs
-`external_product_mac_plain` (a complex einsum) only for CPU tensors.
+`external_product_mac_plain` (a complex einsum) only for CPU tensors.  A
+launch puts ceil(B / 2) row groups on grid y, at most 65,535, so a call
+of more than `MAX_ROWS` rows runs one launch per slice of the batch
+(a call that fits takes one launch on the whole tensors).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fourstep_fft import MAX_GRID_Y, _at, row_slices
+
+ROWS_PER_BLOCK = 2                      # `kRows` in csrc/external_product.cu
+MAX_ROWS = ROWS_PER_BLOCK * MAX_GRID_Y  # batch rows one launch takes
 
 
 def external_product_mac_plain(dig: torch.Tensor, bsk: torch.Tensor) -> torch.Tensor:
@@ -54,6 +61,11 @@ def external_product_mac(dig: torch.Tensor, bsk: torch.Tensor) -> torch.Tensor:
     K = bsk.shape[2]
     out = torch.empty((B, 2, K, F), dtype=torch.float64, device=dig.device)
     fn = _build.function("external_product", "external_product_mac_launch", 3, 4)
-    _build.launch(name, fn, dig.data_ptr(), bsk.data_ptr(), out.data_ptr(),
-                  B, J, K, F, device=dig.device)
+    if B <= MAX_ROWS:
+        _build.launch(name, fn, dig.data_ptr(), bsk.data_ptr(), out.data_ptr(),
+                      B, J, K, F, device=dig.device)
+        return out
+    for b0, b1 in row_slices(B, 1, MAX_ROWS):
+        _build.launch(name, fn, _at(dig, b0), bsk.data_ptr(), _at(out, b0),
+                      b1 - b0, J, K, F, device=dig.device)
     return out

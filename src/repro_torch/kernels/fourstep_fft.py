@@ -21,7 +21,11 @@ no intermediate touches device memory.  The digit and torus entry points
 fold a blind-rotation step's rotate, subtract, decompose, cast,
 `float_to_torus` and accumulator add into the same launch: a CMux step is
 forward, MAC, inverse.  Their launches count under `fft_forward` and
-`fft_inverse`.  Only f64 is ported: an f32 transform puts about 2^60 of
+`fft_inverse`.  A launch puts its rows on grid y, at most 65,535 of
+them, so a larger call runs one launch per slice of the batch
+(`row_slices`), each counted; a call that fits takes one launch on the
+whole tensors, with no per-slice address arithmetic on the CMux step's
+host path.  Only f64 is ported: an f32 transform puts about 2^60 of
 error into the 64-bit torus.
 
 Bound on the card: bytes (a 24-row forward call at gpt2 reads and writes
@@ -35,6 +39,24 @@ import torch
 
 from repro_torch.core import batch as batch_mod, decompose as dec, fft as core_fft, torus
 from repro_torch.kernels import _build
+
+MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y, where a launch puts its rows
+
+
+def row_slices(B: int, rows_per_item: int, limit: int = MAX_GRID_Y) -> list:
+    """[(b0, b1), ...]: the batch cut into slices of at most
+    `limit // rows_per_item` items, so that each slice's launch has at most
+    `limit` rows on its grid.  One launch per slice."""
+    if rows_per_item < 1 or rows_per_item > limit:
+        raise ValueError(f"{rows_per_item} rows per item cannot fit {limit} rows")
+    step = limit // rows_per_item
+    return [(b0, min(B, b0 + step)) for b0 in range(0, B, step)]
+
+
+def _at(t: torch.Tensor, b0: int) -> int:
+    """The address of item b0 of a contiguous tensor (no view is made: the
+    wrappers run on every CMux step)."""
+    return t.data_ptr() + b0 * t.stride(0) * t.element_size()
 
 
 def factor_m(M: int) -> tuple[int, int]:
@@ -108,7 +130,12 @@ def fft_forward(x: torch.Tensor) -> torch.Tensor:
     _check_n("fft_forward", N)
     out = torch.empty((B, 2, N // 2), dtype=torch.float64, device=x.device)
     fn = _build.function("fft", "fft_forward_launch", 2, 2)
-    _build.launch("fft_forward", fn, x.data_ptr(), out.data_ptr(), B, N, device=x.device)
+    if B <= MAX_GRID_Y:
+        _build.launch("fft_forward", fn, x.data_ptr(), out.data_ptr(), B, N, device=x.device)
+        return out
+    for b0, b1 in row_slices(B, 1):
+        _build.launch("fft_forward", fn, _at(x, b0), _at(out, b0), b1 - b0, N,
+                      device=x.device)
     return out
 
 
@@ -123,8 +150,13 @@ def fft_inverse(spec: torch.Tensor) -> torch.Tensor:
     _check_n("fft_inverse", 2 * M)
     out = torch.empty((B, 2 * M), dtype=torch.float64, device=spec.device)
     fn = _build.function("fft", "fft_inverse_launch", 2, 2)
-    _build.launch("fft_inverse", fn, spec.data_ptr(), out.data_ptr(), B, 2 * M,
-                  device=spec.device)
+    if B <= MAX_GRID_Y:
+        _build.launch("fft_inverse", fn, spec.data_ptr(), out.data_ptr(), B, 2 * M,
+                      device=spec.device)
+        return out
+    for b0, b1 in row_slices(B, 1):
+        _build.launch("fft_inverse", fn, _at(spec, b0), _at(out, b0), b1 - b0, 2 * M,
+                      device=spec.device)
     return out
 
 
@@ -149,9 +181,15 @@ def fft_forward_digits(src: torch.Tensor, shifts: torch.Tensor | None,
         _check_aux(name, shifts, src, (B,))
     out = torch.empty((B, 2, K * level, N // 2), dtype=torch.float64, device=src.device)
     fn = _build.function("fft", "fft_forward_digits_launch", 3, 5)
-    _build.launch("fft_forward", fn, src.data_ptr(),
-                  None if shifts is None else shifts.data_ptr(), out.data_ptr(),
-                  B, K, N, base_log, level, device=src.device)
+    if B * K * level <= MAX_GRID_Y:
+        _build.launch("fft_forward", fn, src.data_ptr(),
+                      None if shifts is None else shifts.data_ptr(), out.data_ptr(),
+                      B, K, N, base_log, level, device=src.device)
+        return out
+    for b0, b1 in row_slices(B, K * level):
+        _build.launch("fft_forward", fn, _at(src, b0),
+                      None if shifts is None else _at(shifts, b0), _at(out, b0),
+                      b1 - b0, K, N, base_log, level, device=src.device)
     return out
 
 
@@ -172,7 +210,13 @@ def fft_inverse_torus(planes: torch.Tensor, acc: torch.Tensor | None) -> torch.T
         _check_aux(name, acc, planes, (B, K, 2 * M))
     out = torch.empty((B, K, 2 * M), dtype=torch.int64, device=planes.device)
     fn = _build.function("fft", "fft_inverse_torus_launch", 3, 3)
-    _build.launch("fft_inverse", fn, planes.data_ptr(),
-                  None if acc is None else acc.data_ptr(), out.data_ptr(),
-                  B, K, 2 * M, device=planes.device)
+    if B * K <= MAX_GRID_Y:
+        _build.launch("fft_inverse", fn, planes.data_ptr(),
+                      None if acc is None else acc.data_ptr(), out.data_ptr(),
+                      B, K, 2 * M, device=planes.device)
+        return out
+    for b0, b1 in row_slices(B, K):
+        _build.launch("fft_inverse", fn, _at(planes, b0),
+                      None if acc is None else _at(acc, b0), _at(out, b0),
+                      b1 - b0, K, 2 * M, device=planes.device)
     return out

@@ -9,7 +9,14 @@ as the reference's `PRNGKey(0)`), prompts from numpy's `default_rng(seed)`
 (the reference's prompts).  The prompt is fed token by token through the
 decode step, which exercises the cache exactly as decode does, then
 `gen` tokens are decoded greedily.  Runs on the card unless given
-`device`; one card only (`model_parallel` 1).
+`device`.
+
+Without a process group this is the one-device path.  Under an
+initialised process group it builds `make_host_mesh(model_parallel)` and
+lays out the parameters by `param_shardings(mode="serve")` (replicated
+over data), the cache by `cache_specs` and the prompts over the data
+axis, as DTensors, and decodes under `sharding.use_mesh`; the returned
+tokens and logits are the global batch's on every rank.
 """
 from __future__ import annotations
 
@@ -21,11 +28,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get
-from repro_torch.core.engine import ConfigError
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (cache_specs, distribute_params, placements,
+                                     process_group)
 from repro_torch.launch.steps import make_serve_step
-from repro_torch.launch.train import reduced_config
+from repro_torch.launch.train import launch_mesh, reduced_config
 from repro_torch.models import Model, build
+from repro_torch.models.sharding import distribute, full, use_mesh
 
 
 @dataclasses.dataclass
@@ -42,11 +51,7 @@ class ServeRun:
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
           reduced: bool = True, model_parallel: int = 1, seed: int = 0,
           device=None) -> ServeRun:
-    if model_parallel != 1:
-        raise ConfigError(
-            f"model_parallel={model_parallel}: the port serves on one card; "
-            "tensor-parallel serving waits for its multi-device slice "
-            "(launch/mesh.py's sharding rules, models/sharding.py)")
+    mesh = launch_mesh(model_parallel)
     cfg = reduced_config(arch) if reduced else get(arch)
     device = resolve_device(device)
     model = build(cfg, device).init(torch.Generator(device).manual_seed(0))
@@ -56,14 +61,37 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
                               dtype=torch.int32, device=device)
     step = make_serve_step(cfg)
     cache = model.init_cache(batch, max_len)
+    if mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+        distribute_params(model, mesh, "serve")
+        specs = cache_specs(cache, mesh, batch)
+        cache = [{n: t if specs[i][n] is None else
+                  distribute_tensor(t, mesh, placements(specs[i][n], mesh))
+                  for n, t in layer.items()} for i, layer in enumerate(cache)]
+    with use_mesh(mesh):
+        run = _decode(model, step, cache, prompts, batch, prompt_len, max_len, device)
+    toks, logits, t_prefill, t_decode = run
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print(f"[serve] prefill {prompt_len} toks x{batch} in {t_prefill:.2f}s; "
+              f"decode {gen} toks x{batch} in {t_decode:.2f}s "
+              f"({batch * gen / max(t_decode, 1e-9):.1f} tok/s)")
+        print(f"[serve] first generated tokens: {toks[:, :8].tolist()}")
+    return ServeRun(toks, prompts, logits, t_prefill, t_decode, model, cache)
+
+
+def _decode(model, step, cache, prompts, batch, prompt_len, max_len, device):
+    """Feed the prompts through the decode step, then decode greedily to
+    `max_len`: (tokens, last logits, prefill s, decode s)."""
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     def positions(t):
-        return torch.full((batch, 1), t, dtype=torch.int32, device=device)
+        return distribute(torch.full((batch, 1), t, dtype=torch.int32, device=device),
+                          "batch", None)
 
+    prompts = distribute(prompts, "batch", None)
     sync()
     t0 = time.perf_counter()
     logits = None
@@ -76,18 +104,12 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
     tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
     t0 = time.perf_counter()
     for t in range(prompt_len, max_len):
-        out_tokens.append(tok[:, 0].cpu().numpy())
+        out_tokens.append(full(tok)[:, 0].cpu().numpy())
         logits, cache = step(model, cache, tok, positions(t))
         tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
     sync()
     t_decode = time.perf_counter() - t0
-
-    toks = np.stack(out_tokens, axis=1)
-    print(f"[serve] prefill {prompt_len} toks x{batch} in {t_prefill:.2f}s; "
-          f"decode {gen} toks x{batch} in {t_decode:.2f}s "
-          f"({batch * gen / max(t_decode, 1e-9):.1f} tok/s)")
-    print(f"[serve] first generated tokens: {toks[:, :8].tolist()}")
-    return ServeRun(toks, prompts, logits, t_prefill, t_decode, model, cache)
+    return np.stack(out_tokens, axis=1), full(logits), t_prefill, t_decode
 
 
 def main():
@@ -98,10 +120,13 @@ def main():
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="e.g. cpu (default: the card; under torchrun, the rank's)")
     args = ap.parse_args()
-    serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
-          gen=args.gen, reduced=not args.full,
-          model_parallel=args.model_parallel)
+    with process_group(args.device):
+        serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+              gen=args.gen, reduced=not args.full,
+              model_parallel=args.model_parallel, device=args.device)
 
 
 if __name__ == "__main__":

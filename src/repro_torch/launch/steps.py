@@ -4,8 +4,9 @@
 Where a reference step takes the param pytree, the port's takes the built
 `Model`, which holds its parameters: the train step updates them in place
 and returns the optimizer state and metrics, the prefill and serve steps
-run without autograd.  The sharded lowering (`shaped_*`, `lower_cell`)
-belongs to the multi-device path, not ported here.
+run without autograd.  Under `sharding.use_mesh` the same steps run on
+DTensor parameters.  The dry run's sharded lowering (`shaped_*`,
+`lower_cell`) is not ported yet.
 """
 from __future__ import annotations
 

@@ -2,16 +2,19 @@
 
 The port of `repro.models.layers`.  Parameter tensors keep the
 reference's `x @ W` orientation and names, so its param pytree loads by
-name (`repro_torch.interop.lm_params_from_numpy`).  One card has no mesh,
-so the reference's `sharding.constrain` calls have no counterpart.
+name (`repro_torch.interop.lm_params_from_numpy`).
 
 Where the reference runs a bf16 einsum with f32 accumulation
 (`preferred_element_type=F32`), the port casts both operands to f32:
 products of bf16 values are exact in f32, so only the summation order
 differs.
+
+`sharding.constrain` sits where the reference's does: a no-op without a
+mesh, a redistribution of a DTensor under `sharding.use_mesh`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -20,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.sharding import (attention_shards, constrain, regroup,
+                                         replicated_like, topk)
 
 F32 = torch.float32
 
@@ -46,9 +51,9 @@ def rope(q: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     hd = q.shape[-1]
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=F32, device=q.device) / half)
-    ang = pos.to(F32)[..., None] * freqs                  # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, half)
-    sin = torch.sin(ang)[..., None, :]
+    ang = pos.to(F32)[..., None] * replicated_like(freqs, pos)   # (..., S, half)
+    cos = replicated_like(torch.cos(ang)[..., None, :], q)       # (..., S, 1, half)
+    sin = replicated_like(torch.sin(ang)[..., None, :], q)
     q1, q2 = q[..., :half].to(F32), q[..., half:].to(F32)
     out = torch.cat([q1 * cos - q2 * sin, q2 * cos + q1 * sin], dim=-1)
     return out.to(q.dtype)
@@ -75,7 +80,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     if Sq == 1:
         qg = (q.to(F32) * scale).to(k.dtype).reshape(B, 1, G, rep, hd)
+        qg = constrain(qg, "batch", None, None, None, "model")
         s = torch.einsum("bqgrh,bsgh->bgrqs", qg.to(F32), k.to(F32))
+        s = constrain(s, "batch", None, None, None, None)
         mask = q_pos[:, :, None] >= kv_pos[:, None, :]      # (B,1,S)
         if window:
             mask &= q_pos[:, :, None] - kv_pos[:, None, :] < window
@@ -95,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{Skv} keys do not split into {nk} chunks")
 
     # q scaled in f32 then cast to the KV dtype, as the reference does
-    qf = (q.to(F32) * scale).to(k.dtype).to(F32)
+    qf = constrain((q.to(F32) * scale).to(k.dtype).to(F32), "batch", None, "model", None)
     m = torch.full((B, H, Sq), -math.inf, dtype=F32, device=q.device)
     l = torch.zeros((B, H, Sq), dtype=F32, device=q.device)
     o = torch.zeros((B, H, Sq, hd), dtype=F32, device=q.device)
@@ -105,6 +112,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if rep > 1:
             kj = torch.repeat_interleave(kj, rep, dim=2)     # (B,ck,H,hd)
             vj = torch.repeat_interleave(vj, rep, dim=2)
+        kj = constrain(kj, "batch", None, "model", None)
+        vj = constrain(vj, "batch", None, "model", None)
         s = torch.einsum("bshd,bchd->bhsc", qf, kj.to(F32))
         mask = torch.ones((B, Sq, ck), dtype=torch.bool, device=q.device)
         if causal:
@@ -189,8 +198,9 @@ class Attention(nn.Module):
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
 
+        attend = functools.partial(flash_attention, causal=True, window=window)
         if cache is None:
-            o = flash_attention(q, k, v, pos, pos, causal=True, window=window)
+            o = attention_shards(attend, q, k, v, pos, pos)
         else:
             idx = cache["index"]
             S_cache = cache["k"].shape[1]
@@ -201,8 +211,7 @@ class Attention(nn.Module):
             cache["v"][:, slot:slot + Sq] = v
             cache["pos"][:, slot:slot + Sq] = pos
             cache["index"] = idx + Sq
-            o = flash_attention(q, cache["k"], cache["v"], pos, cache["pos"],
-                                causal=True, window=window)
+            o = attention_shards(attend, q, cache["k"], cache["v"], pos, cache["pos"])
         return o.reshape(B, Sq, H * hd) @ self.wo, cache
 
 
@@ -229,17 +238,17 @@ class Mlp(nn.Module):
             dense_init_(self.w_gate, generator)
 
     def forward(self, x):
-        h = x @ self.w_in
+        h = constrain(x @ self.w_in, "batch", None, "model")
         if self.w_gate is not None:
-            h = _act(self.act)(x @ self.w_gate) * h
+            h = _act(self.act)(constrain(x @ self.w_gate, "batch", None, "model")) * h
         else:
             h = _act(self.act)(h)
-        return h @ self.w_out
+        return constrain(h @ self.w_out, "batch", None, None)
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """`jax.nn.one_hot`: an index outside [0, n) gives a row of zeros."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+    return (idx[..., None] == replicated_like(torch.arange(n, device=idx.device), idx)).to(dtype)
 
 
 class Moe(nn.Module):
@@ -276,11 +285,11 @@ class Moe(nn.Module):
         nG = T // G
         if T % G:
             raise ValueError(f"{T} tokens do not split into groups of {G}")
-        xt = x.reshape(nG, G, d)
+        xt = constrain(regroup(x, nG, G, d), "batch", None, None)
 
         logits = xt.to(F32) @ self.router                   # (nG, G, E)
         probs = torch.softmax(logits, dim=-1)
-        gate_vals, idx = torch.topk(probs, K, dim=-1)       # (nG, G, K)
+        gate_vals, idx = topk(probs, K)                     # (nG, G, K)
         gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
 
         C = int(math.ceil(G * K / E * capacity_factor))
@@ -297,10 +306,12 @@ class Moe(nn.Module):
             kept = torch.einsum("gtke->gtk", keep) > 0      # (nG, G, K)
             slot = torch.where(kept, idx * C + pos, E * C)  # E*C: drop bucket
             upd = torch.repeat_interleave(xt, K, dim=1)     # (nG, G*K, d)
-            xe = torch.zeros((nG, E * C + 1, d), dtype=x.dtype, device=x.device)
+            xe = replicated_like(torch.zeros((nG, E * C + 1, d), dtype=x.dtype,
+                                             device=x.device), xt)
             xe.scatter_add_(1, slot.reshape(nG, G * K, 1).expand(-1, -1, d), upd)
-            xe = xe[:, :-1].reshape(nG, E, C, d)
-            h = torch.einsum("gecd,edf->gecf", xe, self.w_in)
+            xe = constrain(xe[:, :-1].reshape(nG, E, C, d), "batch", None, None, None)
+            h = constrain(torch.einsum("gecd,edf->gecf", xe, self.w_in),
+                          "batch", None, None, "model")
             g = act(torch.einsum("gecd,edf->gecf", xe, self.w_gate))
             ye = torch.einsum("gecf,efd->gecd", h * g, self.w_out)
             ye_flat = ye.reshape(nG, E * C, d)
@@ -315,8 +326,10 @@ class Moe(nn.Module):
             disp = torch.einsum("gtke,gtkc->gtec", keep.to(x.dtype), posoh)
             comb = torch.einsum("gtec,gtk,gtke->gtec",
                                 disp.to(F32), gate_vals, keep).to(x.dtype)
-            xe = torch.einsum("gtec,gtd->gecd", disp, xt)   # (nG, E, C, d)
-            h = torch.einsum("gecd,edf->gecf", xe, self.w_in)
+            xe = constrain(torch.einsum("gtec,gtd->gecd", disp, xt),   # (nG, E, C, d)
+                           "batch", None, None, None)
+            h = constrain(torch.einsum("gecd,edf->gecf", xe, self.w_in),
+                          "batch", None, None, "model")
             g = act(torch.einsum("gecd,edf->gecf", xe, self.w_gate))
             ye = torch.einsum("gecf,efd->gecd", h * g, self.w_out)
             out = torch.einsum("gtec,gecd->gtd", comb, ye)
@@ -328,4 +341,4 @@ class Moe(nn.Module):
         density = torch.mean(onehot.sum(2), dim=(0, 1))     # routed frac / e
         router_prob = torch.mean(probs, dim=(0, 1))
         aux = torch.sum(density * router_prob) * E
-        return out.reshape(B, S, d), aux
+        return regroup(out, B, S, d), aux

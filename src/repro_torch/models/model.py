@@ -30,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssd as S
+from repro_torch.models.sharding import constrain, replicated_like, take_rows
 
 F32 = torch.float32
 POS_SENTINEL = 1 << 30  # unwritten KV slots: fails the causal mask
@@ -46,9 +47,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _chunk_loss(hx, lx, head):
     """Summed cross-entropy of one chunk: logsumexp - gold, over f32 logits
     (both operands cast to f32: bf16 products are exact in f32)."""
-    logits = hx.to(F32) @ head.to(F32)
+    logits = constrain(hx.to(F32) @ head.to(F32), "batch", None, "model")
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+    # the gather off a vocab-sharded chunk reduces to the batch layout
+    # before its last axis goes (DTensor's masked partial keeps its shape)
+    gold = constrain(torch.gather(logits, -1, lx[..., None].long()), "batch", None, None)[..., 0]
     return torch.sum(logz - gold)
 
 
@@ -182,12 +185,12 @@ class Model(nn.Module):
     # ---- embedding / unembedding -------------------------------------------
     def _embed(self, tokens, frontend=None):
         cfg = self.cfg
-        x = self.embed[tokens.long()]
+        x = constrain(take_rows(self.embed, tokens), "batch", None, None)
         if cfg.embed_scale:
             x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=F32)).to(x.dtype)
         if frontend is not None and cfg.frontend != "none":
             dt = torch.promote_types(frontend.dtype, self.frontend_proj.dtype)
-            fe = frontend.to(dt) @ self.frontend_proj.to(dt)
+            fe = replicated_like(frontend, x).to(dt) @ self.frontend_proj.to(dt)
             x = torch.cat([fe.to(x.dtype), x[:, fe.shape[1]:]], dim=1)
         return x
 

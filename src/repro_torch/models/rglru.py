@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import normal_init_, param
+from repro_torch.models.sharding import constrain, replicated_like
 
 F32 = torch.float32
 _C = 8.0  # Griffin's recurrence-gate exponent constant
@@ -30,7 +31,8 @@ _C = 8.0  # Griffin's recurrence-gate exponent constant
 
 def _conv1d(x, w, b, state=None):
     K = w.shape[0]
-    pad = (torch.zeros(x.shape[:-2] + (K - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
+    pad = (replicated_like(torch.zeros(x.shape[:-2] + (K - 1, x.shape[-1]), dtype=x.dtype,
+                                       device=x.device), x)
            if state is None else state)
     xp = torch.cat([pad, x], dim=-2)
     out = sum(xp[..., i:i + x.shape[-2], :] * w[i] for i in range(K)) + b
@@ -95,8 +97,8 @@ class RgLru(nn.Module):
     def forward(self, x, cache=None):
         """x: (B, T, d).  cache: None or {"conv": (B,3,D), "h": (B,D)} for
         decode, updated in place.  Returns (out, cache)."""
-        gate = F.gelu(x @ self.w_gate, approximate="tanh")
-        u = x @ self.w_in
+        gate = F.gelu(constrain(x @ self.w_gate, "batch", None, "model"), approximate="tanh")
+        u = constrain(x @ self.w_in, "batch", None, "model")
         conv_state = None if cache is None else cache["conv"]
         u, new_conv = _conv1d(u, self.conv_w, self.conv_b, conv_state)
 

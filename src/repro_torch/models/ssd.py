@@ -12,6 +12,7 @@ one-step recurrence over a carried state.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,7 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import normal_init_, param
+from repro_torch.models.sharding import constrain, is_dtensor, local_shards, replicated_like
 
 F32 = torch.float32
 
@@ -35,8 +38,8 @@ def _causal_conv(xBC, w, b, state=None):
     """Depthwise causal conv width K over (B, T, C); state (B, K-1, C)."""
     K = w.shape[0]
     if state is None:
-        pad = torch.zeros(xBC.shape[:-2] + (K - 1, xBC.shape[-1]), dtype=xBC.dtype,
-                          device=xBC.device)
+        pad = replicated_like(torch.zeros(xBC.shape[:-2] + (K - 1, xBC.shape[-1]),
+                                          dtype=xBC.dtype, device=xBC.device), xBC)
     else:
         pad = state
     xp = torch.cat([pad, xBC], dim=-2)                      # (B, T+K-1, C)
@@ -51,14 +54,31 @@ def ssd_chunked(x, dt, a_log, B, C, D, chunk: int):
     x: (Bt, T, nh, P)   dt: (Bt, T, nh)  softplus-ed already
     B, C: (Bt, T, S)    (single group, broadcast over heads)
     Returns (y (Bt, T, nh, P), the final state (Bt, nh, S, P)).
+    On DTensors the scan runs shard by shard (`sharding.local_shards`):
+    the batch over the data axes and the heads over "model" where they
+    divide, B and C whole on each shard (its einsums flatten (batch,
+    heads), which DTensor's view rules refuse when both are sharded).
     """
     Bt, T, nh, P = x.shape
-    S = B.shape[-1]
     if T % chunk:
         raise ValueError(f"chunk {chunk} does not divide {T}")
-    nc = T // chunk
     A = -torch.exp(a_log)                                   # (nh,) negative
     dA = dt * A                                             # (Bt, T, nh) log-decay
+    tp = axis_sizes(x.device_mesh).get("model", 1) if is_dtensor(x) else 1
+    heads = "model" if nh % tp == 0 else None
+    y, H = local_shards(functools.partial(_ssd_scan, chunk=chunk), (x, dt, dA, B, C),
+                        (("batch", None, heads, None), ("batch", None, heads),
+                         ("batch", None, heads), ("batch", None, None), ("batch", None, None)),
+                        [(x.shape, ("batch", None, heads, None)),
+                         ((Bt, nh, B.shape[-1], P), ("batch", heads, None, None))])
+    return y + D[None, None, :, None] * x, H
+
+
+def _ssd_scan(x, dt, dA, B, C, chunk: int):
+    """`ssd_chunked` without its D skip term, from the log-decay dA."""
+    Bt, T, nh, P = x.shape
+    S = B.shape[-1]
+    nc = T // chunk
     xr = x.reshape(Bt, nc, chunk, nh, P)
     dtr = dt.reshape(Bt, nc, chunk, nh)
     dAr = dA.reshape(Bt, nc, chunk, nh)
@@ -97,9 +117,7 @@ def ssd_chunked(x, dt, a_log, B, C, D, chunk: int):
 
     # 4) inter-chunk contribution: y_t += exp(seg_t) * c_t . H_prev
     y_inter = torch.einsum("bnth,bnti,bnhip->bnthp", torch.exp(seg), Cr, H_prev)
-    y = (y_intra + y_inter).reshape(Bt, T, nh, P)
-    y = y + D[None, None, :, None] * x
-    return y, H
+    return (y_intra + y_inter).reshape(Bt, T, nh, P), H
 
 
 class Ssd(nn.Module):
@@ -145,7 +163,7 @@ class Ssd(nn.Module):
         S = cfg.ssm_state_dim
         P = cfg.ssm_head_dim
         nh = di // P
-        pre = x @ self.in_proj
+        pre = constrain(x @ self.in_proj, "batch", None, "model")
         z, xBC, dt = _split(pre, di, S, nh)
         dt = F.softplus(dt.to(F32) + self.dt_bias)
 

@@ -41,10 +41,20 @@ class AdamW:
 
 def adamw_init(params: dict) -> dict:
     """{"m": {name: zeros}, "v": {name: zeros}}, f32, on each parameter's
-    device."""
+    device and, for a DTensor parameter, in its placements."""
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=F32, device=p.device) for n, p in params.items()}
+        return {n: torch.zeros_like(p, dtype=F32) for n, p in params.items()}
     return {"m": zeros(), "v": zeros()}
+
+
+def _foreach_copy_(dst: list, src: list) -> None:
+    """`torch._foreach_copy_`; DTensors copy shard by shard (each source
+    has its destination's placements), since DTensor has no layout rule
+    for the foreach copy on every PyTorch version."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(dst[0], DTensor):
+        dst, src = [t.to_local() for t in dst], [t.to_local() for t in src]
+    torch._foreach_copy_(dst, src)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -98,6 +108,6 @@ def adamw_update(opt: AdamW, params: dict, opt_state: dict, grads: dict, step: i
     torch._foreach_add_(p32, delta, alpha=-float(lr))
     low = [i for i, x in enumerate(p) if x.dtype != F32]
     if low:
-        torch._foreach_copy_([p[i] for i in low], [p32[i] for i in low])
+        _foreach_copy_([p[i] for i in low], [p32[i] for i in low])
     metrics = {"grad_norm": gnorm, "lr": torch.tensor(lr, dtype=F32)}
     return opt_state, metrics

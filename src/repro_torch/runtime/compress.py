@@ -27,7 +27,8 @@ class Int8Compressor:
     clip_sigma: float = 4.0     # scale = clip_sigma * rms
 
     def init(self, params: dict) -> dict:
-        return {n: torch.zeros(p.shape, dtype=F32, device=p.device) for n, p in params.items()}
+        """{name: f32 zeros} in each parameter's device and placements."""
+        return {n: torch.zeros_like(p, dtype=F32) for n, p in params.items()}
 
     def compress(self, g: torch.Tensor, ef: torch.Tensor):
         """-> (q int8, scale f32 scalar, new residual).  Rounds half to

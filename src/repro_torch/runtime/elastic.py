@@ -1,18 +1,26 @@
-"""Elastic serving capacity: `ElasticAdmission` resizes a serving
-shard's concurrency limit (`max_inflight`) from observed queue depth
-and recent fused-wave occupancy — the per-shard controller behind
-`ServeRuntime(..., elastic=True)`.  Deterministic and lock-free: the
-runtime calls `observe` under its own admission lock, so the controller
-is plain state + policy.
+"""Elastic capacity management, two faces of one idea: the port of
+`repro.runtime.elastic`.
 
-The port's own copy of `repro.runtime.elastic`'s `ElasticPolicy` and
-`ElasticAdmission` (pure Python).  The reference's `ElasticMesh`
-rebuilds a JAX device mesh for the LM stack and is not ported here.
+`ElasticMesh`       rebuild the (data, model) `DeviceMesh` over the
+                    healthy ranks when ranks come and go, and re-shard
+                    live state onto the new topology (training survives
+                    host loss).
+`ElasticAdmission`  resize a serving shard's concurrency limit
+                    (`max_inflight`) from observed queue depth and
+                    recent fused-wave occupancy — the per-shard
+                    controller behind `ServeRuntime(..., elastic=True)`.
+                    Deterministic and lock-free: the runtime calls
+                    `observe` under its own admission lock, so the
+                    controller is plain state + policy.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.launch.mesh import placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,3 +105,53 @@ class ElasticAdmission:
                 self.shrinks += 1
                 return True
         return False
+
+
+@dataclasses.dataclass
+class ElasticMesh:
+    """(data, model) meshes over the ranks of the process group.  Every
+    method is collective: each rank of the group calls it, a rank outside
+    the new mesh too (it holds no shard of the result)."""
+    model_parallel: int = 1
+    axis_names: tuple = ("data", "model")
+
+    def build(self, ranks: Optional[Sequence[int]] = None):
+        """Largest (data, model) `DeviceMesh` over the healthy ranks.
+
+        `model_parallel` is fixed (the weights' layout must survive
+        restarts); the data axis absorbs rank loss: data = n_ranks // model."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        ranks = list(ranks if ranks is not None else range(dist.get_world_size()))
+        mp = self.model_parallel
+        dp = len(ranks) // mp
+        if dp < 1:
+            raise RuntimeError(f"{len(ranks)} ranks cannot host model_parallel={mp}")
+        kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        return DeviceMesh(kind, torch.tensor(ranks[:dp * mp]).reshape(dp, mp),
+                          mesh_dim_names=self.axis_names)
+
+    def reshard(self, tree: dict, specs: dict, new_mesh) -> dict:
+        """Re-shard {name: tensor} onto `new_mesh` by {name: spec}: each
+        DTensor gathers its full value (`full_tensor`), then
+        `distribute_tensor` lays it out on the new mesh from the new mesh's
+        first rank of each dim.  A rank outside the old mesh holds no
+        value and passes a placeholder of the global shape."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        out = {}
+        for name, x in tree.items():
+            if isinstance(x, DTensor):
+                x = (x.full_tensor() if x.device_mesh.get_coordinate() is not None
+                     else torch.empty(x.shape, dtype=x.dtype, device=x.device))
+            out[name] = distribute_tensor(x, new_mesh, placements(specs[name], new_mesh))
+        return out
+
+    def shrink_then_grow(self, tree: dict, specs: dict, lost: int):
+        """Lose the last `lost` ranks, then recover them.
+        Returns (tree_on_small, small_mesh, tree_back, full_mesh)."""
+        import torch.distributed as dist
+        full = self.build()
+        small = self.build(range(dist.get_world_size() - lost))
+        t_small = self.reshard(tree, specs, small)
+        t_back = self.reshard(t_small, specs, full)
+        return t_small, small, t_back, full

@@ -20,8 +20,9 @@ owns
 
 Device routing (`repro_torch.launch.mesh.shard_devices`, over the
 context's device): on one card, or on the CPU, every shard gets that
-device.  The port's engine runs on one device, so a shard given several
-devices gets a one-device engine on the first.
+device.  A shard given several devices (`device_sets`) gets a mesh
+engine over them with the reference backend, and a one-device engine on
+the first with the fused backend, as in the reference.
 
 Observability: every shard mirrors its round counters into a
 `serve.shard.<i>.*` namespace (admitted/completed/failed/inflight/
@@ -34,7 +35,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 from repro_torch.core.engine import ConfigError, TaurusEngine
-from repro_torch.launch.mesh import shard_devices
+from repro_torch.launch.mesh import shard_devices, shard_mesh
 from repro_torch.obs import Telemetry
 from repro_torch.runtime.elastic import ElasticAdmission, ElasticPolicy
 from repro_torch.serve.scheduler import FusedLutScheduler
@@ -197,8 +198,13 @@ def build_shards(ctx, engine: Optional[TaurusEngine] = None, *,
         devs = tuple(device_sets[i])
         if i == 0 and engine is not None:
             eng = engine
+        elif len(devs) > 1 and kb == "reference":
+            # a multi-device shard's rounds split over its devices
+            eng = TaurusEngine.from_context(ctx, mesh=shard_mesh(devs),
+                                            kernel_backend=kb)
         else:
-            # one device per engine: a multi-device shard runs on devs[0]
+            # the fused kernels run per device (fused + mesh is a
+            # ConfigError): a multi-device fused shard runs on devs[0]
             eng = TaurusEngine.from_context(ctx, device=devs[0],
                                             kernel_backend=kb)
         shards.append(EngineShard(

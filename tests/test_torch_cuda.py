@@ -55,6 +55,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.runtime import Int8Compressor  # noqa: E402
@@ -569,3 +570,88 @@ def test_resolve_device_refuses_a_silent_cpu_run(gen, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train("qwen3-0.6b", steps=1, batch=2, seq=32)
 
+
+
+# --- the multi-device paths on one card ------------------------------------------
+
+def test_cluster_mesh_on_the_card(gen):
+    """Four clusters on one card (reference backend): n_clusters 4, batch 48;
+    8 rows of (3m + 2) mod p, and 6 rows padded by 2, decrypt to the table,
+    equal the one-device reference engine on each cluster's 2 rows bit for
+    bit and decrypt as its whole round does; the keys are held once."""
+    from repro_torch.launch.mesh import shard_mesh
+    from repro_torch.obs import Telemetry
+    ctx = TFHEContext.create(gen, TEST_PARAMS)
+    eng = TaurusEngine.from_context(ctx, mesh=shard_mesh([torch.device("cuda", 0)] * 4))
+    one = TaurusEngine.from_context(ctx, kernel_backend="reference")
+    assert eng.n_clusters == 4 and eng.batch_size == 48 and len(eng._keys) == 1
+    mod = TEST_PARAMS.plaintext_modulus
+    table = [(3 * m + 2) % mod for m in range(mod)]
+    for B in (8, 6):
+        msgs = torch.arange(B, device="cuda") % mod
+        cts = ctx.encrypt(gen, msgs)
+        eng.telemetry = tel = Telemetry()
+        reset_launch_counts()
+        out = eng.lut_batch_tables(cts, table)
+        eng.telemetry = None
+        assert not any(launch_counts().values())
+        assert ctx.decrypt(out).tolist() == [table[m] for m in msgs.tolist()]
+        padded = torch.cat([cts, cts[:8 - B]])
+        by_cluster = torch.cat([one.lut_batch_tables(padded[i:i + 2], table)
+                                for i in range(0, 8, 2)])
+        assert torch.equal(out, by_cluster[:B])
+        assert torch.equal(ctx.decrypt(one.lut_batch_tables(cts, table)), ctx.decrypt(out))
+        c = tel.snapshot()["counters"]
+        assert c["engine.pbs_rows"] == 8 and c["engine.pbs_rows_padded"] == 8 - B
+
+
+def test_fused_round_past_the_grid_rows(gen):
+    """16,400 rows at TEST_PARAMS: 65,600 FFT digit rows, past the 65,535 a
+    launch puts on grid y, so each forward transform runs two launches;
+    every row decrypts to its table, and the first 64 decrypt as the
+    reference engine's do."""
+    from repro_torch.kernels.fourstep_fft import row_slices
+    p = TEST_PARAMS
+    B, J = 16400, (p.k + 1) * p.pbs_level
+    assert B * J == 65600 and len(row_slices(B, J)) == 2
+    ctx = TFHEContext.create(gen, p)
+    mod = p.plaintext_modulus
+    msgs = torch.arange(B, device="cuda") % mod
+    cts = ctx.encrypt(gen, msgs)
+    tables = (torch.arange(mod)[None] + torch.arange(B)[:, None]) % mod
+    reset_launch_counts()
+    out = TaurusEngine.from_context(ctx).lut_batch_tables(cts, tables)
+    assert launch_counts() == {"keyswitch_mac": 1, "fft_forward": 2 * p.n,
+                               "fft_inverse": p.n, "external_product_mac": p.n}
+    got = ctx.decrypt(out).cpu()
+    assert torch.equal(got, tables[torch.arange(B), msgs.cpu()])
+    ref = TaurusEngine.from_context(ctx, kernel_backend="reference").lut_batch_tables(
+        cts[:64], tables[:64])
+    assert torch.equal(ctx.decrypt(ref).cpu(), got[:64])
+
+
+def test_every_reduced_config_through_dtensor_at_world_size_one(gen, tmp_path):
+    """One NCCL rank, every placement on a size-1 mesh dim: each reduced
+    config's two train steps and a short decode through DTensor
+    placements give the losses, tokens and logits of the runs without a
+    process group (the same local ops; f32).  The card's PyTorch refuses
+    some DTensor layouts that the CPU's accepts, so this is where those
+    show."""
+    import torch.distributed as dist
+    tkw = dict(steps=2, batch=2, seq=32, log_every=100)
+    skw = dict(batch=2, prompt_len=4, gen=4)
+    plain = {}
+    for arch in configs.ARCH_IDS:
+        run = serve(arch, **skw)
+        plain[arch] = (train(arch, **tkw)[0], run.tokens, run.logits.float().cpu())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        for arch in configs.ARCH_IDS:
+            losses, _ = train(arch, model_parallel=1, **tkw)
+            run = serve(arch, model_parallel=1, **skw)
+            assert np.allclose(losses, plain[arch][0], rtol=1e-5, atol=0), arch
+            assert np.array_equal(run.tokens, plain[arch][1]), arch
+            assert (run.logits.float().cpu() - plain[arch][2]).abs().max().item() <= 1e-5, arch
+    finally:
+        dist.destroy_process_group()

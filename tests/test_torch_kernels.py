@@ -211,6 +211,70 @@ def test_wrappers_refuse_non_cuda_non_cpu_tensors():
         external_product.external_product_mac(meta(1, 2, 2, 8), meta(2, 2, 2, 8))
 
 
+# --- launches past the grid's 65,535 rows ---------------------------------------
+
+@pytest.mark.parametrize("B,per,want", [
+    (16400, 4, [(0, 16383), (16383, 16400)]),    # TEST_PARAMS digits: B K level = 65,600
+    (16400, 2, [(0, 16400)]),                     # its torus rows: B K = 32,800
+    (65535, 1, [(0, 65535)]),
+    (65536, 1, [(0, 65535), (65535, 65536)]),
+    (0, 3, []),
+])
+def test_row_slices_plan(B, per, want):
+    plan = fourstep_fft.row_slices(B, per)
+    assert plan == want
+    assert all((b1 - b0) * per <= fourstep_fft.MAX_GRID_Y for b0, b1 in plan)
+    with pytest.raises(ValueError, match="rows per item"):
+        fourstep_fft.row_slices(4, 70000)
+
+
+def test_mac_row_limit_matches_its_kernel():
+    src = (external_product.__file__.rsplit("/", 1)[0] + "/csrc/external_product.cu")
+    text = open(src).read()
+    assert f"constexpr int kRows = {external_product.ROWS_PER_BLOCK};" in text
+    assert external_product.MAX_ROWS == 131070
+    assert fourstep_fft.row_slices(131071, 1, external_product.MAX_ROWS) == \
+        [(0, 131070), (131070, 131071)]
+
+
+def test_wrappers_launch_once_per_slice(monkeypatch):
+    """Each wrapper's launches, with the kernel call recorded instead of
+    made: one per slice, each given its slice's rows and pointers offset
+    by the slice's start (meta tensors: data_ptr is the byte offset)."""
+    from repro_torch.kernels import _build
+    calls = []
+    monkeypatch.setattr(_build, "function", lambda lib, name, n_ptr, n_int: name)
+    monkeypatch.setattr(_build, "launch",
+                        lambda kernel, fn, *args, device: calls.append((fn, args)))
+    monkeypatch.setattr(fourstep_fft, "_check", lambda *a: None)
+    monkeypatch.setattr(fourstep_fft, "_check_aux", lambda *a: None)
+    monkeypatch.setattr(_build, "require", lambda *a: None)
+    meta = lambda *s, dt=torch.float64: torch.empty(*s, dtype=dt, device="meta")
+    B, K, lvl, N = 16400, 2, 2, 16
+    fourstep_fft.fft_forward_digits(meta(B, K, N, dt=torch.int64), meta(B, dt=torch.int64),
+                                    12, lvl)
+    assert [(a[3], a[0], a[1], a[2]) for _, a in calls] == [
+        (16383, 0, 0, 0), (17, 16383 * K * N * 8, 16383 * 8, 16383 * 2 * K * lvl * N // 2 * 8)]
+    calls.clear()
+    fourstep_fft.fft_inverse_torus(meta(70000, 2, 1, N // 2), meta(70000, 1, N, dt=torch.int64))
+    assert [a[3] for _, a in calls] == [65535, 4465]
+    assert calls[1][1][:3] == (65535 * 2 * N // 2 * 8, 65535 * N * 8, 65535 * N * 8)
+    calls.clear()
+    fourstep_fft.fft_forward(meta(65536, N))
+    fourstep_fft.fft_inverse(meta(65536, 2, N // 2))
+    assert [(fn, a[2]) for fn, a in calls] == [
+        ("fft_forward_launch", 65535), ("fft_forward_launch", 1),
+        ("fft_inverse_launch", 65535), ("fft_inverse_launch", 1)]
+    calls.clear()
+    fourstep_fft.fft_forward_digits(meta(12, K, N, dt=torch.int64), None, 12, lvl)
+    external_product.external_product_mac(meta(12, 2, 2, 8), meta(2, 2, 2, 8))
+    assert [a[3] for _, a in calls] == [12, 12]              # a call that fits: one launch
+    calls.clear()
+    external_product.external_product_mac(meta(131071, 2, 2, 8), meta(2, 2, 2, 8))
+    assert [(a[3], a[1]) for _, a in calls] == [(131070, 0), (1, 0)]
+    assert calls[1][1][0] == 131070 * 2 * 2 * 8 * 8
+
+
 # --- the fused path's pieces --------------------------------------------------
 
 def test_bsk_to_planes_matches(ctx_2bit, tctx_2bit):

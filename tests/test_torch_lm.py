@@ -407,7 +407,7 @@ def test_serve_end_to_end_on_cpu():
 
 
 def test_serve_refuses_model_parallel_and_missing_card(monkeypatch):
-    with pytest.raises(ConfigError, match="multi-device slice"):
+    with pytest.raises(ConfigError, match="process group"):
         serve("qwen3-0.6b", model_parallel=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

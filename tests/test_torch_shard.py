@@ -106,10 +106,11 @@ def test_shard_devices_default_is_the_cards(monkeypatch):
 # --- ConfigError and build_shards -----------------------------------------------
 
 def test_engine_mesh_config_error(tctx_2bit):
-    """Any mesh is rejected at construction: the port's engine runs on
-    one device.  Typed, and a ValueError as in the reference."""
-    with pytest.raises(ConfigError, match="one device"):
-        TaurusEngine.from_context(tctx_2bit, device="cpu", mesh=object())
+    """The fused backend with a mesh is rejected at construction: the
+    fused kernels run per device.  Typed, and a ValueError as in the
+    reference."""
+    with pytest.raises(ConfigError, match="per-device"):
+        TaurusEngine.from_context(tctx_2bit, mesh=("cpu", "cpu"), kernel_backend="fused")
     assert issubclass(ConfigError, ValueError)
     assert serve.ConfigError is ConfigError
     assert TaurusEngine.from_context(tctx_2bit, device="cpu").mesh is None
