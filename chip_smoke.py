@@ -141,15 +141,32 @@ paper's gpt2 parameters (n=1003, N=32768, 6-bit messages, B=12):
    width qwen3-0.6b train steps through DTensor placements against the
    same steps without a process group (losses, ms per step), `serve`
    both ways (greedy tokens equal, the logits' gap) and GPipe at one
-   stage against the sequential stage.
+   stage against the sequential stage;
+15. `repro_torch.kernels.ops` (`ops_phase`, run after the kernel checks of
+   step 2): the reference's wrappers with its f32 planes and int32
+   keyswitch digits at the reference tests' shapes and at gpt2's (B = 12
+   and 288 rows), each f32 kernel within 2e-5 of the f64 spectrum's scale
+   (the MAC within 1e-2) and of its complex64 plain version, the
+   keyswitch bit for bit; timed beside its bound, its plain version, the
+   complex64 `torch.fft` / `einsum` call and the f64 kernel, with the
+   four wrappers' launches counted over one call each;
+16. the LM dry run (`dryrun_phase`): DRYRUN_CELLS at published widths on
+   fake (16, 16) and (2, 16, 16) meshes in a process of its own, every
+   cell's useful share of its counted FLOPs in (0, 1.05] and qwen3's
+   FLOPs x chips equal on the two meshes (analytic counts);
+17. the six demos (`examples_phase`): `python -m repro_torch.examples.<name>`
+   side by side, every got equal to its expect, trace_serve's trace
+   valid.
 
-Prints the card, the build time, a line per phase, a `{"cmux_accuracy":
+Prints the card, the build time, a line per phase, an `{"ops": ...}`, a
+`{"cmux_accuracy":
 ...}`, a `{"radix": ...}`, a `{"fhe_ml": ...}`, a `{"serve": ...}`, an
 `{"xpu": ...}`, a `{"sim": ...}` and a `{"kernels": ...}` JSON line and,
 last,
 `{"ok": true, "device": {...}}`, with an `{"lm": ...}`, a `{"train":
 ...}` and a `{"grid_rows": ..., "mesh": ...}` line before the
-`{"kernels": ...}` one.  Any failure raises and exits nonzero.
+`{"kernels": ...}` one, and a `{"dryrun": ..., "examples": ...}` line
+just before it.  Any failure raises and exits nonzero.
 Needs CUDA; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -306,6 +323,27 @@ def b2b_ms(fn, launches: int = B2B_LAUNCHES) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def timed_kernel(run, plain, library, moved: int, n_ops: float, rate: float,
+                 mem_rate: float, reps: int = REPEATS, b2b: int = B2B_LAUNCHES,
+                 plain_reps: int = 5) -> dict:
+    """A kernel's times, one call at a time and back to back, beside its
+    plain version's, the library call's (None without one) and its bound:
+    the larger of `moved` bytes at `mem_rate` and `n_ops` operations at
+    `rate`.  `text` renders them for the log."""
+    t_bytes, t_ops = moved / mem_rate * 1e3, n_ops / rate * 1e3
+    m = {"ms": cuda_ms(run, reps), "ms_b2b": b2b_ms(run, b2b),
+         "plain_ms": cuda_ms(plain, plain_reps) if plain else None,
+         "library_ms": cuda_ms(library, reps) if library else None,
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bytes_ms": t_bytes, "ops_ms": t_ops, "mb": moved / 1e6}
+    m["text"] = (f"kernel_ms {m['ms']:.4f}, back-to-back {m['ms_b2b']:.4f}, plain_ms "
+                 f"{m['plain_ms']}, library_ms {m['library_ms']}, bound_ms "
+                 f"{m['bound_ms']:.4f} ({m['bound_by']}; bytes {t_bytes:.4f} for "
+                 f"{moved / 1e6:.2f} MB, operations {t_ops:.4f} for {n_ops:.3e})")
+    return m
 
 
 def trace_device(run, trace: str):
@@ -1755,6 +1793,12 @@ def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
     d_c, w_c = torch.complex(dig[:, 0], dig[:, 1]), torch.complex(bsk_i[0], bsk_i[1])
     x_scale = ff.fft_inverse_plain(mac.transpose(1, 2).reshape(R * K, 2, M)).abs().max().item()
     fft_flops = 5 * M * (M.bit_length() - 1)
+    # the plain transforms on the round's digit rows and its MAC output rows
+    x = torch.randint(-(1 << (p.pbs_base_log - 1)), 1 << (p.pbs_base_log - 1),
+                      (R * J, p.N), generator=gen, device=cts.device).to(torch.float64)
+    u = torch.complex(x[:, :M], x[:, M:]) * ff.core_fft.twist(p.N, x.device)
+    planes = mac.transpose(1, 2).reshape(R * K, 2, M).contiguous()
+    z = torch.complex(planes[:, 0], planes[:, 1])
     # (run, plain, library call, tolerance, bytes moved, operations, their
     # peak rate): the keyswitch's operations are int8 tensor-core MACs x 2
     cases = {
@@ -1772,6 +1816,12 @@ def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
         "fft_inverse_torus": (lambda: ff.fft_inverse_torus(mac, acc),
                               lambda: ff.fft_inverse_torus_plain(mac, acc), None, "torus",
                               nbytes(mac, acc, acc), fft_flops * R * K, fp64_rate),
+        "fft_forward": (lambda: ff.fft_forward(x), lambda: ff.fft_forward_plain(x),
+                        lambda: torch.fft.fft(u, dim=-1), 1e-12, 2 * nbytes(x),
+                        fft_flops * R * J, fp64_rate),
+        "fft_inverse": (lambda: ff.fft_inverse(planes), lambda: ff.fft_inverse_plain(planes),
+                        lambda: torch.fft.ifft(z, dim=-1), 1e-12, 2 * nbytes(planes),
+                        fft_flops * R * K, fp64_rate),
     }
     out = {}
     for name, (run, plain, library, tol, moved, ops, rate) in cases.items():
@@ -1785,20 +1835,323 @@ def kernels_at_rows(cts, pack, gen, peaks: tuple, smi: str) -> dict:
         else:
             ok = d <= tol * want.abs().max().item()
         del want
-        ms, ms_b2b = cuda_ms(run, 5), b2b_ms(run, 10)
-        lib_ms = cuda_ms(library, 5) if library else None
-        t_bytes, t_ops = moved / mem_rate * 1e3, ops / rate * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        out[name] = {"rows": R, "ms": ms, "ms_b2b": ms_b2b, "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": by, "bytes_ms": t_bytes, "ops_ms": t_ops,
-                     "library_ms": lib_ms, "mb": moved / 1e6, "max_abs_err": d}
+        m = timed_kernel(run, None, library, moved, ops, rate, mem_rate, 5, 10)
+        text = m.pop("text")
+        out[name] = {"rows": R, "max_abs_err": d, **m}
         print(f"phase {name} at {R} rows: max_abs_err {d:.3e} ({'ok' if ok else 'FAILED'}, "
-              f"limit {tol}), kernel_ms {ms:.4f}, back-to-back {ms_b2b:.4f}, library_ms "
-              f"{lib_ms}, bound_ms {max(t_bytes, t_ops):.4f} ({by}; bytes {t_bytes:.4f} for "
-              f"{moved / 1e6:.2f} MB, operations {t_ops:.4f} for {ops:.3e}) on {smi}")
+              f"limit {tol}), {text} on {smi}")
         if not ok:
             raise AssertionError(f"{name} at {R} rows disagrees with its plain version")
     return out
+
+
+OPS_FFT_TOL = 2e-5      # of the spectrum scale (tests/test_kernels.py)
+OPS_MAC_ATOL = 1e-2
+# the int8 limb products of one int32 digit and one 64-bit key word that
+# reach bits below 2^64: digit i (weight 2^(8i)) meets key bytes l < 8 - i
+INT32_LIMB_PRODUCTS = sum(8 - i for i in range(5))
+
+
+def ops_phase(ctx, gen, peaks: tuple, smi: str) -> dict:
+    """`repro_torch.kernels.ops`, the reference's public wrappers, on the
+    card: the f32 transforms and MAC and the keyswitch on int32 digits.
+
+    First the reference tests' shapes (FFT N in {256, 2048, 8192, 65536}
+    at 1 and 3 rows, with the round trip; the MAC (B, 2, 4, 512) x (2, 4,
+    2, 512) at B = 1 and 12; the keyswitch's three (B, S, T) and its
+    extreme-digit row), then gpt2's shapes (N = 32,768, the digit rows of
+    B = 12 and 288 ciphertexts, the key's S and T): each f32 kernel within
+    OPS_FFT_TOL of the spectrum scale of the f64 transform (the MAC within
+    OPS_MAC_ATOL of the f64 product), and of its complex64 plain version,
+    the keyswitch bit for bit against its plain version.  The four
+    wrappers' launches are counted over one call each at B = 12, and each
+    is timed at both row counts beside its bound (bytes at the memory rate:
+    f32 halves them), its plain version, the complex64 `torch.fft` /
+    `einsum` call and the f64 kernel at the same shape.  Returns the four
+    {"kernels": ...} rows and the checks."""
+    import torch
+    from repro_torch.kernels import _build, external_product as ep, fourstep_fft as ff
+    from repro_torch.kernels import keyswitch as ks, ops
+    mem_rate, fp64_rate, int8_rate = peaks[:3]
+    # the data sheets' FP32 rate (CUDA cores) equals their FP64 tensor-core
+    # rate on every H100 part in `roofline.PEAKS`
+    fp32_rate = fp64_rate
+    p = ctx.params
+    f32 = torch.float32
+    checks = []
+
+    def fft_case(x):
+        """(f32 spectrum error, complex64 plain error) over the f64
+        spectrum's scale, and the round trip's largest error."""
+        spec = ops.negacyclic_fft(x)
+        want = ff.fft_forward_plain(x.double())
+        scale = want.abs().max().item() + 1.0
+        err = (spec.double() - want).abs().max().item() / scale
+        err_plain = (spec - ff.fft_forward_plain(x, f32)).abs().max().item() / scale
+        back = ops.negacyclic_ifft(spec)
+        err_inv = (back - ff.fft_inverse_plain(spec, f32)).abs().max().item() / (
+            x.abs().max().item() + 1.0)
+        trip = (back - x).abs().max().item()
+        return err, err_plain, err_inv, trip
+
+    for N in (256, 2048, 8192, 65536):
+        for rows in (1, 3):
+            x = torch.randint(-(1 << 7), 1 << 7, (rows, N), generator=gen,
+                              device="cuda").to(f32)
+            err, err_plain, err_inv, trip = fft_case(x)
+            ok = max(err, err_plain, err_inv) <= OPS_FFT_TOL and trip <= 0.25 * N ** 0.5 / 8
+            checks.append({"what": f"fft N={N} B={rows}", "err": err, "err_plain": err_plain,
+                           "err_inverse": err_inv, "roundtrip": trip, "ok": ok})
+    for rows in (1, 12):
+        dig = torch.randn((rows, 2, 4, 512), generator=gen, device="cuda") * 100
+        bsk = torch.randn((2, 4, 2, 512), generator=gen, device="cuda")
+        got = ops.bru_mac(dig, bsk).double()
+        errs = [(got - w.double()).abs().max().item() for w in (
+            ep.external_product_mac_plain(dig.double(), bsk.double()),
+            ep.external_product_mac_plain(dig, bsk, f32))]
+        checks.append({"what": f"mac B={rows} J=4 K=2 F=512", "err": errs[0],
+                       "err_plain": errs[1], "ok": max(errs) <= OPS_MAC_ATOL})
+    ks_cases = [(1, 128, 65), (4, 1024, 513), (2, 4096, 257)]
+    for rows, S, T in ks_cases:
+        d = torch.randint(-(1 << 31), (1 << 31) - 1, (rows, S), generator=gen,
+                          device="cuda").to(torch.int32)
+        k = torch.randint(-(1 << 62), 1 << 62, (S, T), generator=gen, device="cuda") * 3
+        got = ops.lpu_keyswitch_mac(d, k)
+        checks.append({"what": f"keyswitch B={rows} S={S} T={T}",
+                       "ok": torch.equal(got, ks.keyswitch_mac_int32_plain(d, k))})
+    d = torch.tensor([[-(1 << 31), (1 << 31) - 1, -1, 1, 0, 7, -7, 12345]],
+                     dtype=torch.int32, device="cuda")
+    k = torch.randint(-(1 << 62), 1 << 62, (8, 33), generator=gen, device="cuda") * 3
+    got = ops.lpu_keyswitch_mac(d, k, block_s=8)
+    checks.append({"what": "keyswitch extreme digits", "ok": torch.equal(
+        got, ks.keyswitch_mac_int32_plain(d, k)) and torch.equal(
+        got, (d.to(torch.int64)[:, :, None] * k[None]).sum(1))})
+    for c in checks:
+        print(f"ops {c['what']}: " + ", ".join(f"{k_} {v:.3e}" for k_, v in c.items()
+                                                if isinstance(v, float)) +
+              f" ({'ok' if c['ok'] else 'FAILED'})")
+    if not all(c["ok"] for c in checks):
+        raise AssertionError("an ops wrapper disagrees at the reference tests' shapes")
+
+    # gpt2's shapes: the digit rows of B and 288 ciphertexts, the key's S x T
+    K, M = p.k + 1, p.N // 2
+    J = K * p.pbs_level
+    ksk = ctx.ksk.reshape(-1, ctx.ksk.shape[-1])
+    S, T = ksk.shape
+    fft_flops = 5 * M * (M.bit_length() - 1)
+    rows_out = {}
+    launches = None
+    for R in (B, 288):
+        x = torch.randint(-(1 << 7), 1 << 7, (R * J, p.N), generator=gen, device="cuda").to(f32)
+        x64 = x.double()
+        u = torch.complex(x[:, :M], x[:, M:]) * ff.core_fft.twist(p.N, x.device).to(
+            torch.complex64)
+        spec = ops.negacyclic_fft(x)
+        spec64 = spec.double()
+        zc = torch.complex(spec[:, 0], spec[:, 1])
+        dig = torch.randn((R, 2, J, M), generator=gen, device="cuda") * 100
+        bsk = torch.randn((2, J, K, M), generator=gen, device="cuda")
+        dig64, bsk64 = dig.double(), bsk.double()
+        d_c, w_c = torch.complex(dig[:, 0], dig[:, 1]), torch.complex(bsk[0], bsk[1])
+        mac = ops.bru_mac(dig, bsk)
+        digits = torch.randint(-(1 << 31), (1 << 31) - 1, (R, S), generator=gen,
+                               device="cuda").to(torch.int32)
+        if R == B:       # the ops path's launches: one call of each wrapper
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            ops.negacyclic_fft(x)
+            ops.negacyclic_ifft(spec)
+            ops.bru_mac(dig, bsk)
+            ops.lpu_keyswitch_mac(digits, ksk)
+            torch.cuda.synchronize()
+            launches = _build.launch_counts()
+            print(f"ops launches, one call of each wrapper at B={B}: {launches}")
+            if min(launches.values()) < 1:
+                raise AssertionError(f"an ops wrapper launched no kernel: {launches}")
+
+        def spec_err(got, want):
+            return (got.double() - want.double()).abs().max().item() / (
+                want.abs().max().item() + 1.0)
+
+        cases = {
+            # name: (TPU kernel, run, plain, f64 kernel, library, error check, bytes, ops, rate)
+            "fft_forward[f32]": (
+                "src/repro/kernels/fourstep_fft.py:119", lambda: ops.negacyclic_fft(x),
+                lambda: ff.fft_forward_plain(x, f32), lambda: ff.fft_forward(x64),
+                lambda: torch.fft.fft(u, dim=-1),
+                lambda got: (spec_err(got, ff.fft_forward_plain(x64)),
+                             spec_err(got, ff.fft_forward_plain(x, f32)), OPS_FFT_TOL),
+                2 * nbytes(x), fft_flops * R * J, fp32_rate),
+            "fft_inverse[f32]": (
+                "src/repro/kernels/fourstep_fft.py:139", lambda: ops.negacyclic_ifft(spec),
+                lambda: ff.fft_inverse_plain(spec, f32), lambda: ff.fft_inverse(spec64),
+                lambda: torch.fft.ifft(zc, dim=-1),
+                lambda got: (spec_err(got, ff.fft_inverse_plain(spec64)),
+                             spec_err(got, ff.fft_inverse_plain(spec, f32)), OPS_FFT_TOL),
+                2 * nbytes(spec), fft_flops * R * J, fp32_rate),
+            "external_product_mac[f32]": (
+                "src/repro/kernels/external_product.py:44", lambda: ops.bru_mac(dig, bsk),
+                lambda: ep.external_product_mac_plain(dig, bsk, f32),
+                lambda: ep.external_product_mac(dig64, bsk64),
+                lambda: torch.einsum("bjf,jkf->bkf", d_c, w_c),
+                lambda got: ((got.double() - ep.external_product_mac_plain(dig64, bsk64))
+                             .abs().max().item(),
+                             (got - ep.external_product_mac_plain(dig, bsk, f32))
+                             .abs().max().item(), OPS_MAC_ATOL),
+                nbytes(dig, bsk, mac), 8 * R * J * K * M, fp32_rate),
+            "lpu_keyswitch_mac[int32]": (
+                "src/repro/kernels/keyswitch.py:91", lambda: ops.lpu_keyswitch_mac(digits, ksk),
+                lambda: ks.keyswitch_mac_int32_plain(digits, ksk), None, None,
+                lambda got: (0.0 if torch.equal(got, ks.keyswitch_mac_int32_plain(digits, ksk))
+                             else float("inf"), 0.0, 0.0),
+                nbytes(digits, ksk) + R * T * 8, 2 * R * S * T * INT32_LIMB_PRODUCTS,
+                int8_rate),
+        }
+        # the int32 wrapper builds the key's limb operand on every call: the
+        # kernel alone on the prepared operands is timed beside it
+        d8, limbs = ks.split_int32(digits), ks.ksk_limbs(ksk)
+        ks_kernel_ms = cuda_ms(lambda: ks.keyswitch_mac(d8, limbs), 5)
+        del d8, limbs
+        for name, (replaces, run, plain, f64_run, library, check, moved, n_ops,
+                   rate) in cases.items():
+            got = run()
+            torch.cuda.synchronize()
+            err, err_plain, tol = check(got)
+            ok = err <= tol and err_plain <= tol
+            del got
+            reps, b2b = (5, 10) if R > B or name.startswith("lpu") else (REPEATS, B2B_LAUNCHES)
+            m = timed_kernel(run, plain, library, moved, n_ops, rate, mem_rate, reps, b2b, 3)
+            m.update(rows=R, max_abs_err=err, err_plain=err_plain,
+                     f64_ms=cuda_ms(f64_run, reps) if f64_run else None)
+            if name.startswith("lpu"):
+                m["kernel_only_ms"] = ks_kernel_ms
+            print(f"ops {name} at {R} rows: error {err:.3e} against f64 / exact, "
+                  f"{err_plain:.3e} against its plain version ({'ok' if ok else 'FAILED'}, "
+                  f"limit {tol}), {m.pop('text')}, f64 kernel ms {m['f64_ms']}"
+                  + (f", the kernel alone {ks_kernel_ms:.4f} ms" if name.startswith("lpu")
+                     else "") + f" on {smi}")
+            if not ok:
+                raise AssertionError(f"ops {name} at {R} rows disagrees: {err}, {err_plain}")
+            if R == B:
+                rows_out[name] = {"name": name, "route": "cuda", "source": (
+                    "src/repro_torch/kernels/csrc/keyswitch.cu" if name.startswith("lpu")
+                    else "src/repro_torch/kernels/csrc/fft.cu" if name.startswith("fft")
+                    else "src/repro_torch/kernels/csrc/external_product.cu"),
+                    "replaces": replaces, "launches": None, **m}
+            else:
+                rows_out[name].update({f"{k_}_288": m[k_] for k_ in (
+                    "max_abs_err", "ms", "ms_b2b", "plain_ms", "f64_ms", "library_ms",
+                    "bound_ms", "bound_by", "kernel_only_ms") if k_ in m})
+        del x, x64, u, spec, spec64, zc, dig, bsk, dig64, bsk64, d_c, w_c, mac, digits
+        torch.cuda.empty_cache()
+    key = {"fft_forward[f32]": "fft_forward", "fft_inverse[f32]": "fft_inverse",
+           "external_product_mac[f32]": "external_product_mac",
+           "lpu_keyswitch_mac[int32]": "keyswitch_mac"}
+    for name, row in rows_out.items():
+        row["launches"] = launches[key[name]]
+    # the int32 keyswitch's operands are the phase's own: the main path's
+    # peak memory starts after them
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return {"rows": list(rows_out.values()), "checks": checks, "launches": launches}
+
+
+# the dry run's cells on the card's machine: (arch, shape, multi_pod)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False), ("qwen3-0.6b", "train_4k", True),
+                ("qwen3-0.6b", "prefill_32k", False), ("qwen3-0.6b", "prefill_32k", True),
+                ("qwen3-0.6b", "decode_32k", False), ("qwen3-0.6b", "decode_32k", True),
+                ("deepseek-coder-33b", "train_4k", True), ("qwen2-moe-a2.7b", "train_4k", False))
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+cells = json.loads(sys.argv[1])
+print(json.dumps([dryrun.run_cell(a, s, multi_pod=m, verbose=False) for a, s, m in cells]))
+"""
+
+
+def dryrun_phase(smi: str) -> dict:
+    """`repro_torch.launch.dryrun` on DRYRUN_CELLS, at the published widths
+    on fake (16, 16) and (2, 16, 16) meshes of the card's device type, in
+    a process of its own (the dry run holds a fake process group): every
+    cell must run, its useful share of the counted FLOPs lie in (0, 1.05],
+    and qwen3-0.6b's FLOPs x chips agree on the two meshes.  The numbers
+    are analytic counts at the card's data-sheet peaks, not measurements."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run failed:\n{proc.stderr[-4000:]}")
+    records = json.loads(proc.stdout.strip().splitlines()[-1])
+    for r in records:
+        print(f"dryrun {r['arch']} {r['shape']} {r['mesh']}: flops/dev {r['flops']:.4e}, "
+              f"useful {r['flops_ratio']:.3f}, Tc {r['t_compute_s']:.3e} s, Tm "
+              f"{r['t_memory_s']:.3e} s (major {r['t_memory_major_s']:.3e}), Tcoll "
+              f"{r['t_collective_s']:.3e} s -> {r['bottleneck']}, args/dev "
+              f"{r['arg_bytes'] / 2 ** 30:.2f} GiB, temp/dev {r['temp_bytes'] / 2 ** 30:.2f} GiB, "
+              f"counted in {r['lower_s'] + r['compile_s']:.1f} s (analytic, peaks of {smi})")
+        if not 0 < r["flops_ratio"] <= 1.05:
+            raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: useful "
+                                 f"share {r['flops_ratio']}")
+    by = {(r["arch"], r["shape"], r["chips"]): r for r in records}
+    for (arch, shape, chips), r in by.items():
+        other = by.get((arch, shape, 512))
+        if chips == 256 and other is not None:
+            a, b = r["flops"] * 256, other["flops"] * 512
+            if abs(a - b) > 1e-9 * a:
+                raise AssertionError(f"dry run {arch} {shape}: FLOPs x chips {a:.6e} on "
+                                     f"16x16, {b:.6e} on 2x16x16")
+    print(f"dryrun: {len(records)} cells in {wall:.1f} s")
+    return {"records": records, "wall_s": wall}
+
+
+EXAMPLES = ("quickstart", "encrypted_int32", "fhe_gpt2", "serve_requests", "sim_scenario",
+            "trace_serve")
+EXAMPLES_TIMEOUT_S = 600
+
+
+def examples_phase(smi: str) -> dict:
+    """The six demos (`python -m repro_torch.examples.<name>`) on the card,
+    side by side, one process each: each must exit 0 and print at least
+    one `got (expect want)` line, every got equal to its want, and
+    trace_serve's Chrome trace must validate."""
+    from repro_torch.examples import checked_lines
+    from repro_torch.obs import validate_chrome_trace
+    out = ROOT / "build" / "examples"
+    out.mkdir(parents=True, exist_ok=True)
+    extra = {"sim_scenario": ["--out", str(out / "sim_scenario_report.json")],
+             "trace_serve": ["--out", str(out / "trace_serve.json")]}
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    procs = {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", *extra.get(name, [])],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name in EXAMPLES}
+    results = {}
+    for name, (start, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        wall = time.perf_counter() - start
+        checks = checked_lines(stdout)
+        lines = [ln for ln, _, _ in checks]
+        ok = proc.returncode == 0 and bool(checks) and all(g == w for _, g, w in checks)
+        results[name] = {"rc": proc.returncode, "wall_s": wall, "lines": len(lines), "ok": ok}
+        for ln in lines:
+            print(f"example {name}: {ln.strip()}")
+        print(f"example {name}: exit {proc.returncode}, {len(lines)} got/expect lines, "
+              f"{'all equal' if ok else 'FAILED'}, wall {wall:.1f} s on {smi}")
+        if not ok:
+            raise AssertionError(f"example {name} failed:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    events = validate_chrome_trace(str(out / "trace_serve.json"))
+    results["trace_serve"]["trace_events"] = events
+    print(f"examples: all six in {time.perf_counter() - t0:.1f} s side by side; "
+          f"trace_serve's trace validates ({events} events)")
+    return results
 
 
 def main() -> int:
@@ -1869,19 +2222,12 @@ def main() -> int:
         got, want = run(), plain()
         torch.cuda.synchronize()
         e = err(got, want)
+        m = timed_kernel(run, plain, library, moved, ops, rate, mem_rate)
+        text = m.pop("text")
+        del m["mb"]
         row = {"name": name, "route": "cuda", "source": route_src,
-               "replaces": replaces, "launches": None, "max_abs_err": e["abs"],
-               "ms": cuda_ms(run), "ms_b2b": b2b_ms(run), "plain_ms": cuda_ms(plain, 5),
-               "library_ms": cuda_ms(library) if library else None}
-        t_bytes, t_ops = moved / mem_rate * 1e3, ops / rate * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        row["bytes_ms"], row["ops_ms"] = t_bytes, t_ops
-        print(f"phase {name}: {e['text']} (limit {tol}), kernel_ms {row['ms']:.4f}, "
-              f"back-to-back {row['ms_b2b']:.4f}, "
-              f"plain_ms {row['plain_ms']:.4f}, library_ms {row['library_ms']}, "
-              f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}; bytes {t_bytes:.4f} "
-              f"for {moved / 1e6:.2f} MB, operations {t_ops:.4f} for {ops:.3e}) on {smi}")
+               "replaces": replaces, "launches": None, "max_abs_err": e["abs"], **m}
+        print(f"phase {name}: {e['text']} (limit {tol}), {text} on {smi}")
         if not e["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version: {e['text']}")
         kernels.append(row)
@@ -1969,6 +2315,10 @@ def main() -> int:
           lambda: ff.fft_inverse_torus_plain(out, acc_in), None,
           torus_close, "1e-12 x scale + 1",
           nbytes(out, acc_in) + nbytes(acc_in), inv_flops, peaks[1])
+
+    # -- kernels.ops: the reference's f32 planes and int32 keyswitch digits ----
+    opsed = ops_phase(ctx, gen, peaks, smi)
+    print(json.dumps({"ops": {"checks": opsed["checks"], "launches": opsed["launches"]}}))
 
     # -- one CMux step against the exact product: the kernels' float error ---
     accuracy = {}
@@ -2124,6 +2474,12 @@ def main() -> int:
                 row.update({f"{k}_{tag}": m[k] for k in ("rows", "max_abs_err", "ms",
                                                          "ms_b2b", "bound_ms", "bound_by",
                                                          "library_ms")})
+    kernels += opsed["rows"]
+
+    # -- the LM dry run on fake production meshes; the six demos ----------------
+    dry = dryrun_phase(smi)
+    demos = examples_phase(smi)
+    print(json.dumps({"dryrun": dry, "examples": demos}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

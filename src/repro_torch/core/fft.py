@@ -32,21 +32,26 @@ def twist(N: int, device) -> torch.Tensor:
     return t
 
 
-def forward(poly: torch.Tensor) -> torch.Tensor:
-    """Real (..., N) -> complex (..., N/2) negacyclic transform.
+_COMPLEX = {torch.float64: torch.complex128, torch.float32: torch.complex64}
+
+
+def forward(poly: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """Real (..., N) -> complex (..., N/2) negacyclic transform, on
+    `dtype` planes (complex128 for float64, complex64 for float32).
 
     Integer coefficients are taken as SIGNED representatives (the int64
     view of torus values), as the reference does."""
     N = poly.shape[-1]
-    poly = poly.to(torch.float64)
+    poly = poly.to(dtype)
     u = torch.complex(poly[..., : N // 2], poly[..., N // 2:])
-    return torch.fft.fft(u * twist(N, poly.device), dim=-1)
+    return torch.fft.fft(u * twist(N, poly.device).to(_COMPLEX[dtype]), dim=-1)
 
 
 def inverse(spec: torch.Tensor) -> torch.Tensor:
-    """Complex (..., N/2) -> float64 (..., N) coefficients."""
+    """Complex (..., N/2) -> real (..., N) coefficients, of the spectrum's
+    precision."""
     N = spec.shape[-1] * 2
-    u = torch.fft.ifft(spec, dim=-1) * torch.conj(twist(N, spec.device))
+    u = torch.fft.ifft(spec, dim=-1) * torch.conj(twist(N, spec.device)).to(spec.dtype)
     return torch.cat([u.real, u.imag], dim=-1)
 
 

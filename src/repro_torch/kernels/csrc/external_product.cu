@@ -4,7 +4,7 @@
 // repro/kernels/external_product.py::external_product_mac (body `_kernel`).
 // For one BSK slice shared by the whole batch (the paper's key reuse):
 //
-//     out[b, k, f] = sum_j dig[b, j, f] * bsk[j, k, f]      (complex f64)
+//     out[b, k, f] = sum_j dig[b, j, f] * bsk[j, k, f]      (complex)
 //
 // Layouts are stacked re/im planes, as on the TPU:
 //     dig (B, 2, J, F)    bsk (2, J, K, F)    out (B, 2, K, F)
@@ -24,6 +24,10 @@
 //    variants of this file with other values of the two constants.
 // The sum over j keeps its order, so results match the plain einsum to
 // rounding.
+// Planes are f64 (the engine's path, `external_product_mac_launch`) or f32
+// (the reference's default plane type, `external_product_mac_f32_launch`,
+// which only `kernels.ops` reaches): the kernel is one template on the
+// scalar, with the same (J, K) instantiations for both.
 #include <cuda_runtime.h>
 
 namespace {
@@ -31,12 +35,12 @@ namespace {
 constexpr int kThreads = 128;   // threads per block, one f each
 constexpr int kRows = 2;        // rows per block
 
-template <int J>
+template <class S, int J>
 struct Row {
-  double xr[J], xi[J];
-  __device__ __forceinline__ void load(const double* dig, int b, int f, int F) {
-    const double* dr = dig + (static_cast<size_t>(b) * 2 + 0) * J * F + f;
-    const double* di = dig + (static_cast<size_t>(b) * 2 + 1) * J * F + f;
+  S xr[J], xi[J];
+  __device__ __forceinline__ void load(const S* dig, int b, int f, int F) {
+    const S* dr = dig + (static_cast<size_t>(b) * 2 + 0) * J * F + f;
+    const S* di = dig + (static_cast<size_t>(b) * 2 + 1) * J * F + f;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       xr[j] = __ldg(dr + static_cast<size_t>(j) * F);
@@ -45,15 +49,15 @@ struct Row {
   }
 };
 
-template <int J, int K>
-__device__ __forceinline__ void mac_store(const Row<J>& x, const double (&wr)[J][K],
-                                          const double (&wi)[J][K], double* out,
+template <class S, int J, int K>
+__device__ __forceinline__ void mac_store(const Row<S, J>& x, const S (&wr)[J][K],
+                                          const S (&wi)[J][K], S* out,
                                           int b, int f, int F) {
-  double* orr = out + (static_cast<size_t>(b) * 2 + 0) * K * F + f;
-  double* oi = out + (static_cast<size_t>(b) * 2 + 1) * K * F + f;
+  S* orr = out + (static_cast<size_t>(b) * 2 + 0) * K * F + f;
+  S* oi = out + (static_cast<size_t>(b) * 2 + 1) * K * F + f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    double sr = 0.0, si = 0.0;
+    S sr = 0, si = 0;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       sr += x.xr[j] * wr[j][k] - x.xi[j] * wi[j][k];
@@ -64,16 +68,16 @@ __device__ __forceinline__ void mac_store(const Row<J>& x, const double (&wr)[J]
   }
 }
 
-template <int J, int K>
+template <class S, int J, int K>
 __global__ void __launch_bounds__(kThreads)
-external_product_mac_kernel(const double* __restrict__ dig,
-                            const double* __restrict__ bsk,
-                            double* __restrict__ out, int B, int F) {
+external_product_mac_kernel(const S* __restrict__ dig,
+                            const S* __restrict__ bsk,
+                            S* __restrict__ out, int B, int F) {
   const int f = blockIdx.x * kThreads + threadIdx.x;
   if (f >= F) return;
   const int b0 = blockIdx.y * kRows;
   const int b1 = min(B, b0 + kRows);
-  double wr[J][K], wi[J][K];
+  S wr[J][K], wi[J][K];
 #pragma unroll
   for (int j = 0; j < J; ++j)
 #pragma unroll
@@ -83,25 +87,43 @@ external_product_mac_kernel(const double* __restrict__ dig,
     }
   int b = b0;
   for (; b + 1 < b1; b += 2) {
-    Row<J> x0, x1;
+    Row<S, J> x0, x1;
     x0.load(dig, b, f, F);
     x1.load(dig, b + 1, f, F);
-    mac_store<J, K>(x0, wr, wi, out, b, f, F);
-    mac_store<J, K>(x1, wr, wi, out, b + 1, f, F);
+    mac_store<S, J, K>(x0, wr, wi, out, b, f, F);
+    mac_store<S, J, K>(x1, wr, wi, out, b + 1, f, F);
   }
   if (b < b1) {
-    Row<J> x0;
+    Row<S, J> x0;
     x0.load(dig, b, f, F);
-    mac_store<J, K>(x0, wr, wi, out, b, f, F);
+    mac_store<S, J, K>(x0, wr, wi, out, b, f, F);
   }
 }
 
-template <int J, int K>
-int launch(const double* d, const double* w, double* o, int B, int F,
-           cudaStream_t st) {
+template <class S, int J, int K>
+int launch(const S* d, const S* w, S* o, int B, int F, cudaStream_t st) {
   const dim3 grid((F + kThreads - 1) / kThreads, (B + kRows - 1) / kRows);
-  external_product_mac_kernel<J, K><<<grid, kThreads, 0, st>>>(d, w, o, B, F);
+  external_product_mac_kernel<S, J, K><<<grid, kThreads, 0, st>>>(d, w, o, B, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+// J = K * level for K = k+1 in {1, 2, 3} and level in {1, 2, 3}; any other
+// shape returns cudaErrorInvalidValue.
+template <class S>
+int dispatch(const void* dig, const void* bsk, void* out, int B, int J, int K, int F,
+             void* stream) {
+  auto d = static_cast<const S*>(dig);
+  auto w = static_cast<const S*>(bsk);
+  auto o = static_cast<S*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
+#define EP_CASE(JJ, KK) \
+  if (J == JJ && K == KK) return launch<S, JJ, KK>(d, w, o, B, F, st);
+  EP_CASE(1, 1) EP_CASE(2, 1) EP_CASE(3, 1)
+  EP_CASE(2, 2) EP_CASE(4, 2) EP_CASE(6, 2)
+  EP_CASE(3, 3) EP_CASE(6, 3) EP_CASE(9, 3)
+#undef EP_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -109,23 +131,17 @@ int launch(const double* d, const double* w, double* o, int B, int F,
 extern "C" {
 
 // dig (B, 2, J, F), bsk (2, J, K, F), out (B, 2, K, F): contiguous f64 on
-// the current device.  J = K * level for K = k+1 in {1, 2, 3} and level in
-// {1, 2, 3}; any other shape returns cudaErrorInvalidValue.  B <= 2 * 65,535
+// the current device, (J, K) as `dispatch` takes them.  B <= 2 * 65,535
 // (row groups go on grid y): the Python wrapper slices larger batches.
 int external_product_mac_launch(const void* dig, const void* bsk, void* out,
                                 int B, int J, int K, int F, void* stream) {
-  auto d = static_cast<const double*>(dig);
-  auto w = static_cast<const double*>(bsk);
-  auto o = static_cast<double*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
-#define EP_CASE(JJ, KK) \
-  if (J == JJ && K == KK) return launch<JJ, KK>(d, w, o, B, F, st);
-  EP_CASE(1, 1) EP_CASE(2, 1) EP_CASE(3, 1)
-  EP_CASE(2, 2) EP_CASE(4, 2) EP_CASE(6, 2)
-  EP_CASE(3, 3) EP_CASE(6, 3) EP_CASE(9, 3)
-#undef EP_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<double>(dig, bsk, out, B, J, K, F, stream);
+}
+
+// The same on f32 planes.
+int external_product_mac_f32_launch(const void* dig, const void* bsk, void* out,
+                                    int B, int J, int K, int F, void* stream) {
+  return dispatch<float>(dig, bsk, out, B, J, K, F, stream);
 }
 
 const char* error_string(int code) {

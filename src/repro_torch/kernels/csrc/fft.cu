@@ -1,4 +1,4 @@
-// Negacyclic FFT for Hopper (sm_90a), f64, one launch per transform.
+// Negacyclic FFT for Hopper (sm_90a), f64 or f32, one launch per transform.
 //
 // Replaces the Pallas TPU kernels repro/kernels/fourstep_fft.py::fft_forward
 // and ::fft_inverse (bodies `_fwd_kernel`, `_inv_kernel`).
@@ -68,6 +68,14 @@
 // The inverse is the forward transform of the conjugated spectrum:
 // ifft(X) = conj(fft(conj(X))) / M, with the untwist folded into the store.
 //
+// Plane type.  The kernel is a template on its complex type V (double2 or
+// float2).  The engine's path is f64 throughout: an f32 transform puts
+// about 2^60 of error into the 64-bit torus, so the digit and torus entry
+// points exist only in f64.  The plain transforms also come in f32 (the
+// TPU kernel's default plane type, which `kernels.ops` reaches): their
+// roots are computed in f64 and rounded once into the same two tables,
+// and everything else runs in f32, in half the shared memory.
+//
 // Bound on the card: bytes.  At gpt2 (24 rows of M = 16,384) a forward call
 // reads 6.3 MB and writes 6.3 MB: 3.76 us at 3.35 TB/s, against about
 // 27 MFLOP, under 1 us of FP64 even on the CUDA cores.  So FP64 tensor
@@ -88,14 +96,14 @@ constexpr int kMaxRadix = 16;   // radix of the Stockham passes (8 or 16)
 constexpr int kTwRun = 4;       // four-step twiddles per table lookup
 
 struct Args {
-  const void* in;       // x (B, N) f64 | src (B, K, N) int64 | planes f64
+  const void* in;       // x (B, N) real | src (B, K, N) int64 | planes
   const int64_t* aux;   // shifts (B,) for digits, acc (B, K, N) for torus, or null
   void* out;
   int J;                // rows per batch element (digit rows, or K for the inverse)
   int level, base_log;  // forward digits only
 };
 
-template <int LOG_M>
+template <int LOG_M, class V>
 struct Cfg {
   static constexpr int M = 1 << LOG_M, N = 2 * M;
   static constexpr int R = 1 << ((LOG_M + 1) / 2), C = 1 << (LOG_M / 2);
@@ -110,22 +118,33 @@ struct Cfg {
   static constexpr int GBUF = C * GS;
   static constexpr int TH = 4 * M < 256 ? 4 * M : 256;
   static constexpr int LO = 4 * M / TH;
-  static constexpr size_t SMEM = (2 * BUF + GBUF + TH + LO) * sizeof(double2);
+  static constexpr size_t SMEM = (2 * BUF + GBUF + TH + LO) * sizeof(V);
 };
 
-__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
-  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+// The real type of a complex type, and complex helpers for both.
+template <class V> struct Real;
+template <> struct Real<double2> { using T = double; };
+template <> struct Real<float2> { using T = float; };
+
+template <class V>
+__device__ __forceinline__ V c2(typename Real<V>::T x, typename Real<V>::T y) {
+  V v;
+  v.x = x;
+  v.y = y;
+  return v;
 }
-__device__ __forceinline__ double2 cconj(double2 a) { return make_double2(a.x, -a.y); }
-__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
-  return make_double2(a.x + b.x, a.y + b.y);
+template <class V>
+__device__ __forceinline__ V cmul(V a, V b) {
+  return c2<V>(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
-__device__ __forceinline__ double2 csub(double2 a, double2 b) {
-  return make_double2(a.x - b.x, a.y - b.y);
-}
-__device__ __forceinline__ double2 mul_mi(double2 a) {  // -i * a
-  return make_double2(a.y, -a.x);
-}
+template <class V>
+__device__ __forceinline__ V cconj(V a) { return c2<V>(a.x, -a.y); }
+template <class V>
+__device__ __forceinline__ V cadd(V a, V b) { return c2<V>(a.x + b.x, a.y + b.y); }
+template <class V>
+__device__ __forceinline__ V csub(V a, V b) { return c2<V>(a.x - b.x, a.y - b.y); }
+template <class V>
+__device__ __forceinline__ V mul_mi(V a) { return c2<V>(a.y, -a.x); }  // -i * a
 
 // The two halves of a cluster barrier, so that work can go on between them.
 __device__ __forceinline__ void cluster_arrive() {
@@ -137,76 +156,90 @@ __device__ __forceinline__ void cluster_wait() {
 
 // Natural-order DFT of RADIX values in registers: v[k] = sum_r v[r] W^(rk).
 template <int RADIX>
-__device__ __forceinline__ void dft(double2* v);
+struct Dft;
 
 template <>
-__device__ __forceinline__ void dft<2>(double2* v) {
-  const double2 a = v[0], b = v[1];
-  v[0] = cadd(a, b);
-  v[1] = csub(a, b);
-}
-
-template <>
-__device__ __forceinline__ void dft<4>(double2* v) {
-  const double2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
-  const double2 t2 = cadd(v[1], v[3]), t3 = mul_mi(csub(v[1], v[3]));
-  v[0] = cadd(t0, t2);
-  v[2] = csub(t0, t2);
-  v[1] = cadd(t1, t3);
-  v[3] = csub(t1, t3);
-}
-
-template <>
-__device__ __forceinline__ void dft<8>(double2* v) {
-  double2 e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
-  dft<4>(e);
-  dft<4>(o);
-  constexpr double c = 0.70710678118654752440;
-  o[1] = make_double2(c * (o[1].x + o[1].y), c * (o[1].y - o[1].x));   // W8^1
-  o[2] = mul_mi(o[2]);                                                 // W8^2
-  o[3] = make_double2(c * (o[3].y - o[3].x), -c * (o[3].x + o[3].y));  // W8^3
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[k] = cadd(e[k], o[k]);
-    v[k + 4] = csub(e[k], o[k]);
+struct Dft<2> {
+  template <class V>
+  __device__ __forceinline__ static void run(V* v) {
+    const V a = v[0], b = v[1];
+    v[0] = cadd(a, b);
+    v[1] = csub(a, b);
   }
-}
+};
+
+template <>
+struct Dft<4> {
+  template <class V>
+  __device__ __forceinline__ static void run(V* v) {
+    const V t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+    const V t2 = cadd(v[1], v[3]), t3 = mul_mi(csub(v[1], v[3]));
+    v[0] = cadd(t0, t2);
+    v[2] = csub(t0, t2);
+    v[1] = cadd(t1, t3);
+    v[3] = csub(t1, t3);
+  }
+};
+
+template <>
+struct Dft<8> {
+  template <class V>
+  __device__ __forceinline__ static void run(V* v) {
+    using S = typename Real<V>::T;
+    V e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
+    Dft<4>::run(e);
+    Dft<4>::run(o);
+    constexpr S c = S(0.70710678118654752440);
+    o[1] = c2<V>(c * (o[1].x + o[1].y), c * (o[1].y - o[1].x));   // W8^1
+    o[2] = mul_mi(o[2]);                                           // W8^2
+    o[3] = c2<V>(c * (o[3].y - o[3].x), -c * (o[3].x + o[3].y));  // W8^3
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = cadd(e[k], o[k]);
+      v[k + 4] = csub(e[k], o[k]);
+    }
+  }
+};
 
 // 16 = 4 x 4: four DFT-4 down the stride-4 columns, the twiddles
 // W16^(r2 k1), four DFT-4 across; out[k1 + 4 k2].
 template <>
-__device__ __forceinline__ void dft<16>(double2* v) {
-  constexpr double c1 = 0.92387953251128673848, s1 = 0.38268343236508978178;
-  constexpr double h = 0.70710678118654752440;
-  double2 a[4][4];
+struct Dft<16> {
+  template <class V>
+  __device__ __forceinline__ static void run(V* v) {
+    using S = typename Real<V>::T;
+    constexpr S c1 = S(0.92387953251128673848), s1 = S(0.38268343236508978178);
+    constexpr S h = S(0.70710678118654752440);
+    V a[4][4];
 #pragma unroll
-  for (int r2 = 0; r2 < 4; ++r2) {
-    double2 t[4] = {v[r2], v[4 + r2], v[8 + r2], v[12 + r2]};
-    dft<4>(t);
+    for (int r2 = 0; r2 < 4; ++r2) {
+      V t[4] = {v[r2], v[4 + r2], v[8 + r2], v[12 + r2]};
+      Dft<4>::run(t);
 #pragma unroll
-    for (int k1 = 0; k1 < 4; ++k1) a[r2][k1] = t[k1];
+      for (int k1 = 0; k1 < 4; ++k1) a[r2][k1] = t[k1];
+    }
+    a[1][1] = cmul(a[1][1], c2<V>(c1, -s1));    // W16^1
+    a[1][2] = cmul(a[1][2], c2<V>(h, -h));      // W16^2
+    a[1][3] = cmul(a[1][3], c2<V>(s1, -c1));    // W16^3
+    a[2][1] = cmul(a[2][1], c2<V>(h, -h));      // W16^2
+    a[2][2] = mul_mi(a[2][2]);                  // W16^4
+    a[2][3] = cmul(a[2][3], c2<V>(-h, -h));     // W16^6
+    a[3][1] = cmul(a[3][1], c2<V>(s1, -c1));    // W16^3
+    a[3][2] = cmul(a[3][2], c2<V>(-h, -h));     // W16^6
+    a[3][3] = cmul(a[3][3], c2<V>(-c1, s1));    // W16^9
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) {
+      V t[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+      Dft<4>::run(t);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = t[k2];
+    }
   }
-  a[1][1] = cmul(a[1][1], make_double2(c1, -s1));    // W16^1
-  a[1][2] = cmul(a[1][2], make_double2(h, -h));      // W16^2
-  a[1][3] = cmul(a[1][3], make_double2(s1, -c1));    // W16^3
-  a[2][1] = cmul(a[2][1], make_double2(h, -h));      // W16^2
-  a[2][2] = mul_mi(a[2][2]);                         // W16^4
-  a[2][3] = cmul(a[2][3], make_double2(-h, -h));     // W16^6
-  a[3][1] = cmul(a[3][1], make_double2(s1, -c1));    // W16^3
-  a[3][2] = cmul(a[3][2], make_double2(-h, -h));     // W16^6
-  a[3][3] = cmul(a[3][3], make_double2(-c1, s1));    // W16^9
-#pragma unroll
-  for (int k1 = 0; k1 < 4; ++k1) {
-    double2 t[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
-    dft<4>(t);
-#pragma unroll
-    for (int k2 = 0; k2 < 4; ++k2) v[k1 + 4 * k2] = t[k2];
-  }
-}
+};
 
 // exp(2 pi i e / 4M) for e in [0, 4M), from the two root tables.
-template <class CF>
-__device__ __forceinline__ double2 zroot(const double2* hi, const double2* lo, int e) {
+template <class CF, class V>
+__device__ __forceinline__ V zroot(const V* hi, const V* lo, int e) {
   return cmul(hi[e / CF::LO], lo[e % CF::LO]);
 }
 
@@ -214,10 +247,10 @@ __device__ __forceinline__ double2 zroot(const double2* hi, const double2* lo, i
 // of sequence s at i * STRIDE + s; NS is the product of earlier radices.
 // With TW, output r, row m1 = d + r * NS of column j2 = j2_0 + s, is
 // multiplied by the four-step twiddle W_M^(m1 j2).
-template <class CF, int L, int NSEQ, int STRIDE, int RADIX, int NS, bool TW>
-__device__ __forceinline__ void stockham_pass(const double2* __restrict__ in,
-                                              double2* __restrict__ out,
-                                              const double2* hi, const double2* lo,
+template <class CF, int L, int NSEQ, int STRIDE, int RADIX, int NS, bool TW, class V>
+__device__ __forceinline__ void stockham_pass(const V* __restrict__ in,
+                                              V* __restrict__ out,
+                                              const V* hi, const V* lo,
                                               int j2_0) {
   constexpr int NB = L / RADIX, TOTAL = NB * NSEQ;
 #pragma unroll
@@ -225,7 +258,7 @@ __device__ __forceinline__ void stockham_pass(const double2* __restrict__ in,
     const int q = threadIdx.x + it * CF::T;
     if (TOTAL % CF::T != 0 && q >= TOTAL) break;
     const int s = q % NSEQ, jb = q / NSEQ, k = jb % NS;
-    double2 v[RADIX];
+    V v[RADIX];
 #pragma unroll
     for (int r = 0; r < RADIX; ++r) v[r] = in[(jb + r * NB) * STRIDE + s];
     if (NS > 1) {
@@ -234,7 +267,7 @@ __device__ __forceinline__ void stockham_pass(const double2* __restrict__ in,
 #pragma unroll
       for (int r = 1; r < RADIX; ++r) v[r] = cmul(v[r], cconj(hi[r * k * STEP]));
     }
-    dft<RADIX>(v);
+    Dft<RADIX>::run(v);
     const int d = (jb / NS) * NS * RADIX + k;
     if constexpr (TW) {
       // Every kTwRun-th twiddle from the tables (m1 j2 < R C = M), the
@@ -242,10 +275,10 @@ __device__ __forceinline__ void stockham_pass(const double2* __restrict__ in,
       // recurrence over all of r grows its rounding with r.
       const int j2 = j2_0 + s;
       constexpr int RUN = RADIX < kTwRun ? RADIX : kTwRun;
-      const double2 step = cconj(zroot<CF>(hi, lo, 4 * NS * j2));
+      const V step = cconj(zroot<CF>(hi, lo, 4 * NS * j2));
 #pragma unroll
       for (int r0 = 0; r0 < RADIX; r0 += RUN) {
-        double2 w = cconj(zroot<CF>(hi, lo, 4 * (d + r0 * NS) * j2));
+        V w = cconj(zroot<CF>(hi, lo, 4 * (d + r0 * NS) * j2));
 #pragma unroll
         for (int r = r0; r < r0 + RUN; ++r) {
           v[r] = cmul(v[r], w);
@@ -261,9 +294,8 @@ __device__ __forceinline__ void stockham_pass(const double2* __restrict__ in,
 // All passes of an L-point FFT, ping-ponging a -> b -> a ...; returns the
 // buffer that holds the result.  The odd radix goes first, so the last pass,
 // which applies the twiddle when TW, is of radix kMaxRadix wherever L allows.
-template <class CF, int L, int NSEQ, int STRIDE, bool TW, int NS = 1>
-__device__ double2* fft_passes(double2* a, double2* b, const double2* hi,
-                               const double2* lo, int j2_0) {
+template <class CF, int L, int NSEQ, int STRIDE, bool TW, int NS = 1, class V>
+__device__ V* fft_passes(V* a, V* b, const V* hi, const V* lo, int j2_0) {
   if constexpr (NS >= L) {
     return a;
   } else {
@@ -305,39 +337,41 @@ __device__ __forceinline__ uint64_t to_torus(double x) {
   return (uint64_t)(long long)hi * 4294967296ull + (uint64_t)(long long)rint(lo);
 }
 
-template <int LOG_M, int MODE>
-__global__ void __launch_bounds__(Cfg<LOG_M>::T, Cfg<LOG_M>::T <= 256 ? 2 : 1)
+template <int LOG_M, int MODE, class V>
+__global__ void __launch_bounds__(Cfg<LOG_M, V>::T, Cfg<LOG_M, V>::T <= 256 ? 2 : 1)
 fft_kernel(Args a) {
-  using CF = Cfg<LOG_M>;
+  using CF = Cfg<LOG_M, V>;
+  using S = typename Real<V>::T;
   constexpr int M = CF::M, N = CF::N, R = CF::R, RB = CF::RB, CB = CF::CB;
   constexpr int CS = CF::CS, GS = CF::GS, E = CF::E, T = CF::T, EPT = CF::EPT;
   constexpr bool kForward = MODE == kFwdFloat || MODE == kFwdDigits;
-  extern __shared__ double2 smem[];
-  double2* buf0 = smem;
-  double2* buf1 = smem + CF::BUF;
-  double2* G = smem + 2 * CF::BUF;     // the gathered rows
-  double2* hi = G + CF::GBUF;
-  double2* lo = hi + CF::TH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* smem = reinterpret_cast<V*>(smem_raw);
+  V* buf0 = smem;
+  V* buf1 = smem + CF::BUF;
+  V* G = smem + 2 * CF::BUF;     // the gathered rows
+  V* hi = G + CF::GBUF;
+  V* lo = hi + CF::TH;
   cg::cluster_group cluster = cg::this_cluster();
   const int p = blockIdx.x;        // rank in the cluster: gridDim.x == P
   const int row = blockIdx.y;
   const int b = row / a.J, jj = row % a.J;
 
   // 1. Issue every load of this block's column slab, j = j1 * C + p * CB + c.
-  double lre[EPT], lim[EPT];       // float modes
+  S lre[EPT], lim[EPT];             // float modes
   uint64_t ls[EPT][2], lt[EPT][2];  // digits: src at j, j + M, and rotated
-  const double* pre = nullptr;
-  const double* pim = nullptr;
+  const S* pre = nullptr;
+  const S* pim = nullptr;
   const uint64_t* src = nullptr;
   int64_t shift = 0;
-  if (MODE == kFwdFloat) {
-    pre = static_cast<const double*>(a.in) + (size_t)row * N;
+  if constexpr (MODE == kFwdFloat) {
+    pre = static_cast<const S*>(a.in) + (size_t)row * N;
     pim = pre + M;
-  } else if (MODE == kFwdDigits) {
+  } else if constexpr (MODE == kFwdDigits) {
     src = static_cast<const uint64_t*>(a.in) + ((size_t)b * (a.J / a.level) + jj / a.level) * N;
     if (a.aux != nullptr) shift = a.aux[b];
   } else {
-    pre = static_cast<const double*>(a.in) + ((size_t)b * 2 * a.J + jj) * M;
+    pre = static_cast<const S*>(a.in) + ((size_t)b * 2 * a.J + jj) * M;
     pim = pre + (size_t)a.J * M;
   }
 #pragma unroll
@@ -345,7 +379,7 @@ fft_kernel(Args a) {
     const int e = threadIdx.x + i * T;
     if (E % T != 0 && e >= E) break;
     const int j = (e / CB) * CF::C + p * CB + e % CB;
-    if (MODE == kFwdDigits) {
+    if constexpr (MODE == kFwdDigits) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int pos = j + h * M;
@@ -358,12 +392,13 @@ fft_kernel(Args a) {
     }
   }
 
-  // 2. Root tables: hi[t] = exp(2 pi i t / TH), lo[t] = exp(2 pi i t / 4M).
+  // 2. Root tables: hi[t] = exp(2 pi i t / TH), lo[t] = exp(2 pi i t / 4M),
+  // computed in f64 (and rounded once for f32).
   for (int t = threadIdx.x; t < CF::TH + CF::LO; t += T) {
     double s, c;
     if (t < CF::TH) sincospi(2.0 * t / CF::TH, &s, &c);
     else sincospi(2.0 * (t - CF::TH) / (4 * M), &s, &c);
-    hi[t] = make_double2(c, s);
+    hi[t] = c2<V>((S)c, (S)s);
   }
   __syncthreads();
 
@@ -374,8 +409,8 @@ fft_kernel(Args a) {
     if (E % T != 0 && e >= E) break;
     const int c = e % CB, j1 = e / CB;
     const int j = j1 * CF::C + p * CB + c;
-    double2 z;
-    if (MODE == kFwdDigits) {
+    V z;
+    if constexpr (MODE == kFwdDigits) {
       double d[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -387,19 +422,19 @@ fft_kernel(Args a) {
         }
         d[h] = (double)gadget_digit(v, a.base_log, a.level, jj % a.level);
       }
-      z = cmul(make_double2(d[0], d[1]), zroot<CF>(hi, lo, j));
-    } else if (kForward) {
-      z = cmul(make_double2(lre[i], lim[i]), zroot<CF>(hi, lo, j));
+      z = cmul(c2<V>((S)d[0], (S)d[1]), zroot<CF>(hi, lo, j));
+    } else if constexpr (kForward) {
+      z = cmul(c2<V>(lre[i], lim[i]), zroot<CF>(hi, lo, j));
     } else {
-      z = make_double2(lre[i], -lim[i]);   // conj: ifft via the forward FFT
+      z = c2<V>(lre[i], -lim[i]);   // conj: ifft via the forward FFT
     }
     buf0[j1 * CS + c] = z;
   }
   __syncthreads();
 
   // 4. R-point FFTs down the columns, the last pass times W_M^(m1 j2).
-  double2* F = fft_passes<CF, R, CB, CS, true>(buf0, buf1, hi, lo, p * CB);
-  double2* X = F == buf0 ? buf1 : buf0;
+  V* F = fft_passes<CF, R, CB, CS, true>(buf0, buf1, hi, lo, p * CB);
+  V* X = F == buf0 ? buf1 : buf0;
   cluster.sync();
 
   // 5. Gather rows m1 = p * RB + rr from the peers: peer q holds columns
@@ -407,7 +442,7 @@ fft_kernel(Args a) {
   // of CB values in the peer; all remote loads go first, so each thread
   // has EPT of them in flight.  F is left alone from here on, so the
   // peers' reads of it need no barrier until this block exits.
-  double2 g[EPT];
+  V g[EPT];
 #pragma unroll
   for (int i = 0; i < EPT; ++i) {
     const int e = threadIdx.x + i * T;
@@ -427,7 +462,8 @@ fft_kernel(Args a) {
 
   // The torus epilogue's acc values, in flight during the row FFTs.
   uint64_t lacc[EPT][2];
-  if (MODE == kInvTorus && a.aux != nullptr) {
+  if constexpr (MODE == kInvTorus) {
+   if (a.aux != nullptr) {
     const uint64_t* acc = reinterpret_cast<const uint64_t*>(a.aux) + (size_t)row * N;
 #pragma unroll
     for (int i = 0; i < EPT; ++i) {
@@ -437,10 +473,11 @@ fft_kernel(Args a) {
       lacc[i][0] = acc[m];
       lacc[i][1] = acc[m + M];
     }
+   }
   }
 
   // 6. C-point FFTs along the rows, in G and X; X[m1 + R * m2] at m2 * GS + r.
-  const double2* H = fft_passes<CF, CF::C, RB, GS, false>(G, X, hi, lo, 0);
+  const V* H = fft_passes<CF, CF::C, RB, GS, false>(G, X, hi, lo, 0);
 
   // 7. Epilogue.
 #pragma unroll
@@ -449,16 +486,16 @@ fft_kernel(Args a) {
     if (E % T != 0 && e >= E) break;
     const int r = e % RB, m2 = e / RB;
     const int m = p * RB + r + R * m2;
-    const double2 y = H[m2 * GS + r];
-    if (kForward) {
-      double* ore = static_cast<double*>(a.out) + ((size_t)b * 2 * a.J + jj) * M;
+    const V y = H[m2 * GS + r];
+    if constexpr (kForward) {
+      S* ore = static_cast<S*>(a.out) + ((size_t)b * 2 * a.J + jj) * M;
       ore[m] = y.x;
       ore[(size_t)a.J * M + m] = y.y;
     } else {
-      const double2 w = cmul(y, zroot<CF>(hi, lo, m));   // conj(w) / M is the value
-      const double x0 = w.x * (1.0 / M), x1 = -w.y * (1.0 / M);
-      if (MODE == kInvFloat) {
-        double* o = static_cast<double*>(a.out) + (size_t)row * N;
+      const V w = cmul(y, zroot<CF>(hi, lo, m));   // conj(w) / M is the value
+      const S x0 = w.x * (S(1) / M), x1 = -w.y * (S(1) / M);
+      if constexpr (MODE == kInvFloat) {
+        S* o = static_cast<S*>(a.out) + (size_t)row * N;
         o[m] = x0;
         o[m + M] = x1;
       } else {
@@ -476,12 +513,12 @@ fft_kernel(Args a) {
   cluster_wait();   // the peers are done reading this block's F
 }
 
-template <int LOG_M, int MODE>
+template <int LOG_M, int MODE, class V>
 cudaError_t launch_one(const Args& a, int rows, cudaStream_t st) {
-  using CF = Cfg<LOG_M>;
+  using CF = Cfg<LOG_M, V>;
   static bool ready = false;
   if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(fft_kernel<LOG_M, MODE>,
+    cudaError_t e = cudaFuncSetAttribute(fft_kernel<LOG_M, MODE, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)CF::SMEM);
     if (e != cudaSuccess) return e;
@@ -499,12 +536,12 @@ cudaError_t launch_one(const Args& a, int rows, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, fft_kernel<LOG_M, MODE>, a);
+  return cudaLaunchKernelEx(&cfg, fft_kernel<LOG_M, MODE, V>, a);
 }
 
 // N a power of two in [8, 65536]; rows = B * a.J, at most 65,535 (they go on
 // grid y): the Python wrappers cut a larger batch into slices (`row_slices`).
-template <int MODE>
+template <int MODE, class V = double2>
 int dispatch(int N, int rows, const Args& a, void* stream) {
   int log_m = 0;
   while ((2 << log_m) < N) ++log_m;
@@ -514,7 +551,7 @@ int dispatch(int N, int rows, const Args& a, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (log_m) {
 #define FFT_CASE(L) \
-  case L: return (int)launch_one<L, MODE>(a, rows, st);
+  case L: return (int)launch_one<L, MODE, V>(a, rows, st);
     FFT_CASE(2) FFT_CASE(3) FFT_CASE(4) FFT_CASE(5) FFT_CASE(6) FFT_CASE(7)
     FFT_CASE(8) FFT_CASE(9) FFT_CASE(10) FFT_CASE(11) FFT_CASE(12) FFT_CASE(13)
     FFT_CASE(14) FFT_CASE(15)
@@ -538,6 +575,15 @@ int fft_forward_launch(const void* x, void* out, int B, int N, void* stream) {
 // spec (B, 2, N/2) f64 -> x (B, N) f64.
 int fft_inverse_launch(const void* spec, void* x, int B, int N, void* stream) {
   return dispatch<kInvFloat>(N, B, Args{spec, nullptr, x, 1, 1, 0}, stream);
+}
+
+// The same two transforms on f32: x (B, N) -> out (B, 2, N/2), and back.
+int fft_forward_f32_launch(const void* x, void* out, int B, int N, void* stream) {
+  return dispatch<kFwdFloat, float2>(N, B, Args{x, nullptr, out, 1, 1, 0}, stream);
+}
+
+int fft_inverse_f32_launch(const void* spec, void* x, int B, int N, void* stream) {
+  return dispatch<kInvFloat, float2>(N, B, Args{spec, nullptr, x, 1, 1, 0}, stream);
 }
 
 // src (B, K, N) int64, shifts (B,) int64 or null -> out (B, 2, K*level, N/2)

@@ -68,12 +68,12 @@ extern "C" int read_marks(void* dst, int blocks) {
 # (pattern, text inserted after the match) of the `phases` probe
 MARK_AT = [
     (r"const int b = row / a.J, jj = row % a.J;\n", "  mark(0);\n"),
-    (r"hi\[t\] = make_double2\(c, s\);\n  \}\n  __syncthreads\(\);\n", "  mark(1);\n"),
+    (r"hi\[t\] = c2<V>\(\(S\)c, \(S\)s\);\n  \}\n  __syncthreads\(\);\n", "  mark(1);\n"),
     (r"buf0\[j1 \* CS \+ c\] = z;\n  \}\n  __syncthreads\(\);\n", "  mark(2);\n"),
-    (r"double2\* X = F == buf0 \? buf1 : buf0;\n", "  mark(3);\n"),
+    (r"V\* X = F == buf0 \? buf1 : buf0;\n", "  mark(3);\n"),
     (r"mark\(3\);\n  cluster.sync\(\);\n", "  mark(4);\n"),
     (r"  \}\n  __syncthreads\(\);\n(?=\n  // The torus epilogue)", "  mark(5);\n"),
-    (r"const double2\* H = [^\n]*\n", "  mark(6);\n"),
+    (r"const V\* H = [^\n]*\n", "  mark(6);\n"),
     (r"(?=  cluster_wait\(\);   // the peers)", "  mark(7);\n"),
     (r"cluster_wait\(\);   // the peers[^\n]*\n", "  mark(8);\n"),
 ]
@@ -90,7 +90,7 @@ def variant_source(text: str, radix: int, p: int, vpt: int, probe: str | None) -
         (r"FFT_CASE\(2\)[^#]*FFT_CASE\(15\)", "FFT_CASE(14)"),   # [^#] spans lines
     ]
     if p > 8:   # clusters above 8 blocks need the non-portable size allowed
-        subs.append((r"    ready = true;", "    cudaFuncSetAttribute(fft_kernel<LOG_M, MODE>, "
+        subs.append((r"    ready = true;", "    cudaFuncSetAttribute(fft_kernel<LOG_M, MODE, V>, "
                      "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n    ready = true;"))
     if probe == "no_fft":
         subs.append((r"if constexpr \(NS >= L\) \{", "if constexpr (true) {"))

@@ -1,9 +1,10 @@
-"""Four-step negacyclic FFT, f64, natural spectrum order, and the CMux
-step's glue folded into it.
+"""Four-step negacyclic FFT, natural spectrum order, and the CMux step's
+glue folded into it.
 
     fft_forward:         real coeffs (B, N) -> spectrum planes (B, 2, M),
-                         M = N/2, spectrum = `core.fft.forward`
-    fft_inverse:         spectrum planes (B, 2, M) -> real coeffs (B, N)
+                         M = N/2, spectrum = `core.fft.forward`; f64 or f32
+    fft_inverse:         spectrum planes (B, 2, M) -> real coeffs (B, N);
+                         f64 or f32
     fft_forward_digits:  int64 (B, K, N) [+ shifts (B,)] -> (B, 2, J, M)
                          planes of the gadget digits of X^shift * src - src
                          (or of src), J = K * level, row j = u * level + l:
@@ -25,8 +26,12 @@ forward, MAC, inverse.  Their launches count under `fft_forward` and
 them, so a larger call runs one launch per slice of the batch
 (`row_slices`), each counted; a call that fits takes one launch on the
 whole tensors, with no per-slice address arithmetic on the CMux step's
-host path.  Only f64 is ported: an f32 transform puts about 2^60 of
-error into the 64-bit torus.
+host path.  The engine's path is f64 (an f32 transform puts about 2^60
+of error into the 64-bit torus), so the digit and torus entry points
+exist only in f64.  `fft_forward` and `fft_inverse` take `dtype=`, the
+reference's plane type: f64 by default here, f32 (the TPU kernel's
+default, reached through `kernels.ops`) as a second instantiation of the
+same CUDA kernel, counted under the same name.
 
 Bound on the card: bytes (a 24-row forward call at gpt2 reads and writes
 12.6 MB; `fft_inverse_torus` with `acc` moves 18.9 MB).  The wrappers
@@ -68,16 +73,30 @@ def factor_m(M: int) -> tuple[int, int]:
     return r, M // r
 
 
+PLANE_TYPES = (torch.float64, torch.float32)
+
+
+def plane_type(name: str, dtype) -> torch.dtype:
+    """`dtype` if a kernel has an instantiation for it, else raise: an f32
+    request never runs f64, nor the other way round."""
+    if dtype not in PLANE_TYPES:
+        raise ValueError(f"{name}: planes are float64 or float32, got {dtype}")
+    return dtype
+
+
 # --- plain versions ------------------------------------------------------------
 
-def fft_forward_plain(x: torch.Tensor) -> torch.Tensor:
-    """real (B, N) -> (B, 2, N/2) f64 stacked re/im (the kernel's layout)."""
-    spec = core_fft.forward(x)
+def fft_forward_plain(x: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """real (B, N) -> (B, 2, N/2) stacked re/im (the kernel's layout) of
+    `dtype`: `core.fft.forward` (complex128 `torch.fft` in f64, complex64
+    in f32)."""
+    spec = core_fft.forward(x, dtype)
     return torch.stack([spec.real, spec.imag], dim=1)
 
 
-def fft_inverse_plain(spec: torch.Tensor) -> torch.Tensor:
-    """(B, 2, M) -> real (B, 2M) f64."""
+def fft_inverse_plain(spec: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """(B, 2, M) -> real (B, 2M) of `dtype`: `core.fft.inverse`."""
+    spec = spec.to(dtype)
     return core_fft.inverse(torch.complex(spec[:, 0], spec[:, 1]))
 
 
@@ -121,15 +140,20 @@ def _check_aux(name: str, aux: torch.Tensor, like: torch.Tensor, shape: tuple) -
                    f"{aux.dtype} {tuple(aux.shape)} on {aux.device}")
 
 
-def fft_forward(x: torch.Tensor) -> torch.Tensor:
-    """Negacyclic forward transform: real (B, N) -> (B, 2, N/2) planes."""
+def fft_forward(x: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """Negacyclic forward transform: real (B, N) -> (B, 2, N/2) planes of
+    `dtype` (x is cast to it, as the reference casts)."""
+    plane_type("fft_forward", dtype)
+    if x.dtype != dtype:
+        x = x.to(dtype)
     if x.device.type == "cpu":
-        return fft_forward_plain(x)
-    _check("fft_forward", x, 2, torch.float64)
+        return fft_forward_plain(x, dtype)
+    _check("fft_forward", x, 2, dtype)
     B, N = x.shape
     _check_n("fft_forward", N)
-    out = torch.empty((B, 2, N // 2), dtype=torch.float64, device=x.device)
-    fn = _build.function("fft", "fft_forward_launch", 2, 2)
+    out = torch.empty((B, 2, N // 2), dtype=dtype, device=x.device)
+    fn = _build.function("fft", "fft_forward_launch" if dtype == torch.float64
+                         else "fft_forward_f32_launch", 2, 2)
     if B <= MAX_GRID_Y:
         _build.launch("fft_forward", fn, x.data_ptr(), out.data_ptr(), B, N, device=x.device)
         return out
@@ -139,17 +163,22 @@ def fft_forward(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fft_inverse(spec: torch.Tensor) -> torch.Tensor:
-    """Inverse: (B, 2, M) planes -> real coeffs (B, 2M)."""
+def fft_inverse(spec: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """Inverse: (B, 2, M) planes -> real coeffs (B, 2M) of `dtype` (the
+    planes are cast to it)."""
+    plane_type("fft_inverse", dtype)
+    if spec.dtype != dtype:
+        spec = spec.to(dtype)
     if spec.device.type == "cpu":
-        return fft_inverse_plain(spec)
-    _check("fft_inverse", spec, 3, torch.float64)
+        return fft_inverse_plain(spec, dtype)
+    _check("fft_inverse", spec, 3, dtype)
     _build.require("fft_inverse", spec.shape[1] == 2,
                    f"needs (B, 2, M) planes, got {tuple(spec.shape)}")
     B, _, M = spec.shape
     _check_n("fft_inverse", 2 * M)
-    out = torch.empty((B, 2 * M), dtype=torch.float64, device=spec.device)
-    fn = _build.function("fft", "fft_inverse_launch", 2, 2)
+    out = torch.empty((B, 2 * M), dtype=dtype, device=spec.device)
+    fn = _build.function("fft", "fft_inverse_launch" if dtype == torch.float64
+                         else "fft_inverse_f32_launch", 2, 2)
     if B <= MAX_GRID_Y:
         _build.launch("fft_inverse", fn, spec.data_ptr(), out.data_ptr(), B, 2 * M,
                       device=spec.device)

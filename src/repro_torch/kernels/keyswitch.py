@@ -25,6 +25,14 @@ order).
 `keyswitch_mac_plain`, which repeats the kernel's arithmetic (per-limb
 products over stretches of S, then the shift-and-wrap fold), only for
 CPU tensors.
+
+The engine's digits fit int8 (ks_base_log <= 6).  The TPU kernel's
+contract is the whole int32 range, which `keyswitch_mac_int32` keeps on
+the same int8 kernel: each int32 digit is five balanced base-2^8 digits
+d = sum_i 2^(8i) d_i, d_i in [-128, 127] (`split_int32`; four reach only
+2,139,062,143), stacked along the batch, so one launch over 5B rows
+against the one limb operand gives each d_i . K, and
+sum_i 2^(8i) (d_i . K) = d . K mod 2^64 (`fold_int32`).
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ TILE_S = 16          # the limb operand's S is padded to a multiple of this
 STRETCH = 65536      # rows of S whose int32 limb products stay exact
 _PLAIN_CHUNK = 8192  # rows of S per float64 product in the plain version
 _LIMB_SCALE = [1 << (8 * l) for l in range(8)]
+INT32_DIGITS = 5     # balanced base-2^8 digits of an int32
 
 
 def ksk_limbs(ksk: torch.Tensor) -> torch.Tensor:
@@ -109,3 +118,51 @@ def keyswitch_mac(digits: torch.Tensor, limbs: torch.Tensor) -> torch.Tensor:
     _build.launch(name, fn, digits.data_ptr(), limbs.data_ptr(), out.data_ptr(),
                   B, S16, T, device=digits.device)
     return out
+
+
+# --- int32 digits: the TPU kernel's contract on the int8 kernel ----------------
+
+def split_int32(digits: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 -> (5B, S) int8: row i*B + b holds balanced base-2^8
+    digit i of digits[b], so digits = sum_i 2^(8i) d_i exactly."""
+    d = digits.to(torch.int64)
+    parts = []
+    for _ in range(INT32_DIGITS):
+        low = ((d + 128) & 255) - 128
+        parts.append(low)
+        d = (d - low) >> 8
+    return torch.cat(parts, dim=0).to(torch.int8)
+
+
+def fold_int32(out: torch.Tensor) -> torch.Tensor:
+    """(5B, T) products of `split_int32`'s rows -> (B, T): sum_i
+    2^(8i) out[i*B:(i+1)*B], wrapping mod 2^64."""
+    B = out.shape[0] // INT32_DIGITS
+    acc = out[:B].clone()
+    for i in range(1, INT32_DIGITS):
+        acc += out[i * B:(i + 1) * B] << (8 * i)
+    return acc
+
+
+def _require_int32(digits: torch.Tensor, ksk: torch.Tensor) -> None:
+    _build.require("keyswitch_mac", digits.dtype == torch.int32 and ksk.dtype == torch.int64
+                   and digits.dim() == 2 and ksk.dim() == 2
+                   and digits.shape[1] == ksk.shape[0],
+                   f"needs (B, S) int32 digits and an (S, T) int64 key, got "
+                   f"{digits.dtype} {tuple(digits.shape)} x {ksk.dtype} {tuple(ksk.shape)}")
+
+
+def keyswitch_mac_int32_plain(digits: torch.Tensor, ksk: torch.Tensor) -> torch.Tensor:
+    """digits (B, S) int32, ksk (S, T) int64 -> (B, T) int64 mod 2^64: the
+    plain version of `keyswitch_mac_int32`, exact."""
+    _require_int32(digits, ksk)
+    return fold_int32(keyswitch_mac_plain(split_int32(digits), ksk_limbs(ksk)))
+
+
+def keyswitch_mac_int32(digits: torch.Tensor, ksk: torch.Tensor) -> torch.Tensor:
+    """digits (B, S) int32 (any value), ksk (S, T) int64 (uint64 bits) ->
+    (B, T) int64 mod 2^64, in one `keyswitch_mac` launch over 5B rows."""
+    _require_int32(digits, ksk)
+    if digits.device.type == "cpu":
+        return keyswitch_mac_int32_plain(digits, ksk)
+    return fold_int32(keyswitch_mac(split_int32(digits), ksk_limbs(ksk)))

@@ -24,12 +24,18 @@ the mesh's axis names and sizes (`axis_sizes`), so a stand-in with
 `axis_names` and a `shape` mapping reaches the production shapes (16, 16)
 and (2, 16, 16) without 256 ranks.  `placements` turns a spec into
 DTensor placements: `Shard(i)` on the mesh dim that axis i names,
-`Replicate()` on every other.  The dry run's `make_production_mesh` and
-`input_specs` are not ported yet.
+`Replicate()` on every other.
+
+The dry run's production meshes (`make_production_mesh`) are real
+`DeviceMesh`es of 256 or 512 ranks over a fake process group held by this
+one process as rank 0: collectives return at once, and the tensors laid
+out on them are meta shards (`input_specs`), so a step runs its ops on
+rank 0's local shapes without memory or communication.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 
 import torch
@@ -114,6 +120,64 @@ def process_group(device=None):
         yield
     finally:
         dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The dry run's mesh: (16, 16) ("data", "model"), or (2, 16, 16)
+    ("pod", "data", "model") with `multi_pod`, over a fake process group of
+    that world size with this process as rank 0, on the card's device type
+    (or `device`'s).  A fake group of another size is replaced; any other
+    initialised group is refused."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return fake_mesh(shape, axes, device)
+
+
+def fake_mesh(shape: tuple, axes: tuple, device=None):
+    """A `DeviceMesh` of `shape` over a fake process group of its size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a fake mesh needs this process's group to be fake, "
+                               f"not {dist.get_backend()}")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    kind = "cuda" if device is None else torch.device(device).type
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+def input_specs(cfg, shape, mesh=None, device="meta") -> dict:
+    """Every model input of this (arch, shape) cell as a tensor without
+    data (meta by default), a DTensor laid out on `mesh` when given:
+    train/prefill {"tokens", "labels"[, "frontend"]} of (B, S), decode
+    {"tokens", "pos"} of (B, 1), int32 (the frontend f32).  The batch
+    axis shards over the data axes when they divide it, as the
+    reference's `input_specs`."""
+    B, S = shape.global_batch, shape.seq_len
+    dp = None
+    if mesh is not None:
+        sizes, axes = axis_sizes(mesh), batch_axes(mesh)
+        size = math.prod(sizes[a] for a in axes)
+        dp = (axes if len(axes) > 1 else axes[0]) if B % size == 0 else None
+
+    def make(shp, dtype):
+        t = torch.empty(shp, dtype=dtype, device=device)
+        if mesh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, mesh, placements((dp,) + (None,) * (len(shp) - 1), mesh))
+
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": make((B, S), torch.int32), "labels": make((B, S), torch.int32)}
+        if cfg.frontend != "none":
+            out["frontend"] = make((B, cfg.frontend_len, cfg.frontend_dim), torch.float32)
+        return out
+    return {"tokens": make((B, 1), torch.int32), "pos": make((B, 1), torch.int32)}
 
 
 def axis_sizes(mesh) -> dict:

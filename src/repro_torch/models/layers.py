@@ -23,8 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.sharding import (attention_shards, constrain, regroup,
-                                         replicated_like, topk)
+from repro_torch.models.sharding import (attention_shards, constrain, merge_heads, regroup,
+                                         replicated_like, split_heads, topk)
 
 F32 = torch.float32
 
@@ -189,9 +189,9 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, Sq, d = x.shape
         H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = (x @ self.wq).reshape(B, Sq, H, hd)
-        k = (x @ self.wk).reshape(B, Sq, G, hd)
-        v = (x @ self.wv).reshape(B, Sq, G, hd)
+        q = split_heads(x @ self.wq, B, Sq, H, hd)
+        k = split_heads(x @ self.wk, B, Sq, G, hd)
+        v = split_heads(x @ self.wv, B, Sq, G, hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
@@ -212,7 +212,7 @@ class Attention(nn.Module):
             cache["pos"][:, slot:slot + Sq] = pos
             cache["index"] = idx + Sq
             o = attention_shards(attend, q, cache["k"], cache["v"], pos, cache["pos"])
-        return o.reshape(B, Sq, H * hd) @ self.wo, cache
+        return constrain(merge_heads(o, B, Sq, H * hd) @ self.wo, "batch", None, None), cache
 
 
 def _act(name: str):
@@ -249,6 +249,41 @@ class Mlp(nn.Module):
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """`jax.nn.one_hot`: an index outside [0, n) gives a row of zeros."""
     return (idx[..., None] == replicated_like(torch.arange(n, device=idx.device), idx)).to(dtype)
+
+
+def _by_expert(x: torch.Tensor) -> torch.Tensor:
+    """(G, E, C, k) -> contiguous (E, G*C, k)."""
+    g, e, c, k = x.shape
+    # a clone, not `contiguous()`: a DTensor may call itself contiguous while
+    # its local shard is not
+    return torch.clone(x.transpose(0, 1), memory_format=torch.contiguous_format
+                       ).reshape(e, g * c, k)
+
+
+def _by_group(y: torch.Tensor, g: int) -> torch.Tensor:
+    """(E, G*C, k) -> (G, E, C, k)."""
+    e, gc, k = y.shape
+    return y.reshape(e, g, gc // g, k).transpose(0, 1)
+
+
+class _ExpertMM(torch.autograd.Function):
+    """einsum("gecd,edf->gecf", x, w) as batched matmuls over the experts,
+    forward and backward, on contiguous operands: a DTensor's einsum
+    backward views its permuted local shards, which fails once the
+    groups are split."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _by_group(torch.matmul(_by_expert(x), w), x.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy_e = _by_expert(dy)                                   # (E, G*C, F)
+        dx = _by_group(torch.matmul(dy_e, w.transpose(1, 2)), x.shape[0])
+        dw = torch.matmul(_by_expert(x).transpose(1, 2), dy_e)  # (E, D, F)
+        return dx, dw
 
 
 class Moe(nn.Module):
@@ -306,14 +341,15 @@ class Moe(nn.Module):
             kept = torch.einsum("gtke->gtk", keep) > 0      # (nG, G, K)
             slot = torch.where(kept, idx * C + pos, E * C)  # E*C: drop bucket
             upd = torch.repeat_interleave(xt, K, dim=1)     # (nG, G*K, d)
-            xe = replicated_like(torch.zeros((nG, E * C + 1, d), dtype=x.dtype,
-                                             device=x.device), xt)
+            xe = constrain(replicated_like(torch.zeros((nG, E * C + 1, d), dtype=x.dtype,
+                                                       device=x.device), xt),
+                           "batch", None, None)
             xe.scatter_add_(1, slot.reshape(nG, G * K, 1).expand(-1, -1, d), upd)
             xe = constrain(xe[:, :-1].reshape(nG, E, C, d), "batch", None, None, None)
-            h = constrain(torch.einsum("gecd,edf->gecf", xe, self.w_in),
+            h = constrain(_ExpertMM.apply(xe, self.w_in),
                           "batch", None, None, "model")
-            g = act(torch.einsum("gecd,edf->gecf", xe, self.w_gate))
-            ye = torch.einsum("gecf,efd->gecd", h * g, self.w_out)
+            g = act(_ExpertMM.apply(xe, self.w_gate))
+            ye = _ExpertMM.apply(h * g, self.w_out)
             ye_flat = ye.reshape(nG, E * C, d)
             back = torch.gather(
                 ye_flat, 1,
@@ -328,10 +364,10 @@ class Moe(nn.Module):
                                 disp.to(F32), gate_vals, keep).to(x.dtype)
             xe = constrain(torch.einsum("gtec,gtd->gecd", disp, xt),   # (nG, E, C, d)
                            "batch", None, None, None)
-            h = constrain(torch.einsum("gecd,edf->gecf", xe, self.w_in),
+            h = constrain(_ExpertMM.apply(xe, self.w_in),
                           "batch", None, None, "model")
-            g = act(torch.einsum("gecd,edf->gecf", xe, self.w_gate))
-            ye = torch.einsum("gecf,efd->gecd", h * g, self.w_out)
+            g = act(_ExpertMM.apply(xe, self.w_gate))
+            ye = _ExpertMM.apply(h * g, self.w_out)
             out = torch.einsum("gtec,gecd->gtd", comb, ye)
 
         if self.shared is not None:

@@ -30,7 +30,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssd as S
-from repro_torch.models.sharding import constrain, replicated_like, take_rows
+from repro_torch.models.sharding import (constrain, logsumexp, replicated_like, take_label,
+                                         take_rows)
 
 F32 = torch.float32
 POS_SENTINEL = 1 << 30  # unwritten KV slots: fails the causal mask
@@ -47,12 +48,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _chunk_loss(hx, lx, head):
     """Summed cross-entropy of one chunk: logsumexp - gold, over f32 logits
     (both operands cast to f32: bf16 products are exact in f32)."""
+    # the head whole over the data axes (its FSDP shard gathered), so the
+    # product keeps the chunk's batch shard and splits the vocabulary
+    head = constrain(head, None, "model")
     logits = constrain(hx.to(F32) @ head.to(F32), "batch", None, "model")
-    logz = torch.logsumexp(logits, dim=-1)
-    # the gather off a vocab-sharded chunk reduces to the batch layout
-    # before its last axis goes (DTensor's masked partial keeps its shape)
-    gold = constrain(torch.gather(logits, -1, lx[..., None].long()), "batch", None, None)[..., 0]
-    return torch.sum(logz - gold)
+    return torch.sum(logsumexp(logits) - take_label(logits, lx))
 
 
 class Layer(nn.Module):
@@ -97,7 +97,11 @@ class Layer(nn.Module):
             mix, _ = self.mixer(h, pos, cache=cache, window=window)
         else:
             mix, _ = self.mixer(h, cache=cache)
-        x = x + mix
+        # the residual stream stays whole on "model" in both passes: a
+        # row-split projection's partial sums are reduced here, not
+        # carried into the next column-split one, which would gather its
+        # weight (a no-op without a mesh)
+        x = x + constrain(mix, "batch", None, None)
         aux = torch.zeros((), dtype=F32, device=x.device)
         if cfg.is_moe or cfg.d_ff > 0:
             h = L.rms_norm(x, self.mlp_norm, cfg.norm_eps, plus_one=cfg.embed_scale)
@@ -105,7 +109,7 @@ class Layer(nn.Module):
                 y, aux = self.moe(h)
             else:
                 y = self.mlp(h)
-            x = x + y
+            x = x + constrain(y, "batch", None, None)
         return x, aux
 
     def init_cache(self, batch: int, max_len: int):

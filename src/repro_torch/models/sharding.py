@@ -81,13 +81,36 @@ def _placed(x, *logical) -> list:
     return placements(logical_spec(x.shape, logical, mesh), mesh)
 
 
+class _Constrain(torch.autograd.Function):
+    """Lay a DTensor out in `want`, and its gradient too: the reference's
+    `with_sharding_constraint` pins the layout of both passes, while
+    DTensor's own backward would hand the gradient on in whatever layout
+    it arrives (a `Partial` sum from the vocab-sharded head, which the next
+    matmul's backward then meets by gathering its weight whole)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if list(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and list(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
 def constrain(x: torch.Tensor, *logical):
     if not is_dtensor(x):
         return x
     want = _placed(x, *logical)
-    if list(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    if x.device_mesh.size() == 1:
+        # one rank: every layout holds the same data, so no gradient needs
+        # pinning, and the autograd node would cost a DTensor op a call
+        return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+    return _Constrain.apply(x, want)
 
 
 def regroup(x: torch.Tensor, *shape) -> torch.Tensor:
@@ -100,6 +123,39 @@ def regroup(x: torch.Tensor, *shape) -> torch.Tensor:
         from torch.distributed.tensor import Replicate
         x = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
     return x.reshape(*shape)
+
+
+def split_heads(x: torch.Tensor, *shape) -> torch.Tensor:
+    """x.reshape(*shape) where the last axis splits into (heads, width).
+    A DTensor sharded on that axis keeps the shard on the heads when they
+    divide its mesh dim, and is gathered whole first when they do not:
+    DTensor cannot cut one shard across two axes (GSPMD tiles both)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last, mesh = x.ndim - 1, x.device_mesh
+        split = [isinstance(p, Shard) and p.dim in (-1, last) for p in x.placements]
+        if any(s and shape[-2] % mesh.size(m) for m, s in enumerate(split)):
+            x = x.redistribute(mesh, [Replicate() if s else p
+                                      for s, p in zip(split, x.placements)])
+    return x.reshape(*shape)
+
+
+def merge_heads(x: torch.Tensor, *shape) -> torch.Tensor:
+    """x.reshape(*shape) where the last two axes (heads, width) merge.  A
+    DTensor split on its width is made whole on "model" first (DTensor
+    merges two axes only when the first carries the shard); when the
+    heads do not divide "model", the merged tensor stays whole there in
+    both passes, so that the next matmul's backward does not hand the
+    reshape a gradient split across the two axes."""
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    from torch.distributed.tensor import Shard
+    uneven = x.shape[-2] % axis_sizes(x.device_mesh).get("model", 1)
+    if uneven or any(isinstance(p, Shard) and p.dim in (-1, x.ndim - 1)
+                     for p in x.placements):
+        x = constrain(x, "batch", *(None,) * (x.ndim - 1))
+    y = x.reshape(*shape)
+    return constrain(y, "batch", *(None,) * (y.ndim - 1)) if uneven else y
 
 
 def replicated_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +198,42 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     layout for sharded indices on every PyTorch version."""
     return local_shards(_rows, (table, idx), ((None, None), ("batch", None)),
                         ((*idx.shape, table.shape[-1]), ("batch", None, None)))
+
+
+def _split_last(x: torch.Tensor) -> bool:
+    """True when a DTensor's last axis is split over more than one rank."""
+    from torch.distributed.tensor import Shard
+    return any(isinstance(p, Shard) and p.dim in (-1, x.ndim - 1) and x.device_mesh.size(m) > 1
+               for m, p in enumerate(x.placements))
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """torch.logsumexp(x, dim=-1).  A DTensor split on its last axis
+    reduces its shard's max and sum across the split (two small
+    all-reduces) instead of gathering the axis whole, as DTensor's own
+    logsumexp does."""
+    if not is_dtensor(x) or not _split_last(x):
+        return torch.logsumexp(x, dim=-1)
+    rest = ("batch",) + (None,) * (x.ndim - 1)
+    m = constrain(torch.amax(x.detach(), dim=-1, keepdim=True), *rest)
+    s = constrain(torch.sum(torch.exp(x - m), dim=-1, keepdim=True), *rest)
+    return (m + torch.log(s))[..., 0]
+
+
+def take_label(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels] (the gold logit of each position).  A DTensor
+    split on the vocabulary takes it as a masked sum over its own shard
+    (exact: one term is not zero), so its gradient keeps the logits'
+    layout; DTensor's own gather answers its backward with a zero tensor
+    of the whole logits on every rank."""
+    rest = ("batch",) + (None,) * (labels.ndim - 1)
+    if not is_dtensor(logits) or not _split_last(logits):
+        gold = torch.gather(logits, -1, labels[..., None].long())
+        return constrain(gold, *rest, None)[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=labels.device)
+    vocab = constrain(replicated_like(vocab, logits), "model")
+    hit = labels[..., None].long() == vocab
+    return constrain(torch.sum(torch.where(hit, logits, 0.0), dim=-1), *rest)
 
 
 def topk(x: torch.Tensor, k: int):
@@ -201,7 +293,29 @@ def attention_shards(fn, q, k, v, q_pos, kv_pos):
     if not is_dtensor(q):
         return fn(q, k, v, q_pos, kv_pos)
     tp = axis_sizes(q.device_mesh).get("model", 1)
-    heads = "model" if q.shape[2] % tp == 0 and k.shape[2] % tp == 0 else None
+    H, G = q.shape[2], k.shape[2]
+    if q.shape[1] > 1 and H % tp == 0 and G % tp:
+        # fewer KV heads than shards: each query head gets its own copy of
+        # its KV head (the repeat the chunked attention makes anyway), so
+        # the heads still split over "model"
+        B, S, _, hd = k.shape
+        k, v = (t.unsqueeze(3).expand(B, S, G, H // G, hd).reshape(B, S, H, hd)
+                for t in (k, v))
+    heads = "model" if H % tp == 0 and k.shape[2] % tp == 0 else None
+    if heads is None and q.shape[1] == 1 and q.shape[-1] % tp == 0:
+        # one decode query whose heads cannot split: the score and value
+        # einsums split head_dim instead, where the cache keeps its shard
+        # (`launch.mesh.cache_specs`), with the scores summed over "model"
+        width = ("batch", None, None, "model")
+        return fn(*(constrain(t, *width) for t in (q, k, v)), q_pos, kv_pos)
     qkv = ("batch", None, heads, None)
+    if heads is None and q.shape[1] % tp == 0:
+        # queries whose heads cannot split: the query positions split
+        # instead, each shard against every key (the positions carry the
+        # causal and window masks)
+        q_spec = ("batch", "model", None, None)
+        return local_shards(fn, (q, k, v, q_pos.contiguous(), kv_pos.contiguous()),
+                            (q_spec, qkv, qkv, ("batch", "model"), ("batch", None)),
+                            (q.shape, q_spec))
     return local_shards(fn, (q, k, v, q_pos.contiguous(), kv_pos.contiguous()),
                         (qkv, qkv, qkv, ("batch", None), ("batch", None)), (q.shape, qkv))

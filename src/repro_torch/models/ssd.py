@@ -22,7 +22,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import normal_init_, param
-from repro_torch.models.sharding import constrain, is_dtensor, local_shards, replicated_like
+from repro_torch.models.sharding import (constrain, is_dtensor, local_shards, merge_heads,
+                                         replicated_like, split_heads)
 
 F32 = torch.float32
 
@@ -169,7 +170,7 @@ class Ssd(nn.Module):
 
         conv_state = None if cache is None else cache["conv"]
         xBC, new_conv = _causal_conv(xBC, self.conv_w, self.conv_b, conv_state)
-        xs = xBC[..., :di].reshape(Bt, T, nh, P)
+        xs = split_heads(xBC[..., :di], Bt, T, nh, P)
         B = xBC[..., di:di + S].to(F32)
         C = xBC[..., di + S:].to(F32)
 
@@ -191,7 +192,7 @@ class Ssd(nn.Module):
             cache["conv"].copy_(new_conv)
             cache["H"].copy_(H)
 
-        y = y.reshape(Bt, T, di).to(x.dtype)
+        y = merge_heads(y, Bt, T, di).to(x.dtype)
         # gated RMSNorm (mamba2): norm(y * silu(z))
         y = y * F.silu(z)
         var = torch.mean(torch.square(y.to(F32)), dim=-1, keepdim=True)

@@ -646,8 +646,9 @@ class ServeRuntime:
                     # a completion with an empty queue is the elastic
                     # controller's shrink opportunity (ramp-down to idle)
                     shard.elastic_observe(self._queue_depth_locked())
-                    self._threads = [t for t in self._threads
-                                     if t.is_alive()
-                                     and t is not threading.current_thread()]
+                    # this worker stays listed until it has ended, so that
+                    # `close()` joins it: a daemon thread still unwinding
+                    # at interpreter exit aborts the process inside torch
+                    self._threads = [t for t in self._threads if t.is_alive()]
                     self._admit_locked()
                 handle._done.set()

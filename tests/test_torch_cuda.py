@@ -10,7 +10,10 @@ Tolerances are the contract's: the keyswitch MAC bit-exact (int8
 digits against the key's limb operand), the FFTs within 1e-12 of the
 output scale, the MAC within 1e-9 relative, and the torus output of
 `fft_inverse_torus` within 1e-12 of the float inverse's scale plus one
-(the f64 transform's rounding, then one torus unit);
+(the f64 transform's rounding, then one torus unit); through
+`kernels.ops`, the f32 transforms within 2e-5 of the spectrum scale and
+the f32 MAC within 1e-2 absolute (the reference's f32 gates), and the
+keyswitch on int32 digits bit for bit;
 PBS rounds, radix integer ops, the `fhe_ml` blocks and served waves
 decrypt exactly to their oracles (a wave to its programs' eager runs);
 the quantize-to-radix MLP's floats stay within its `tol_fn`; the LM
@@ -44,7 +47,7 @@ from repro_torch.fhe_ml import QuantSpec, lower, quantize  # noqa: E402
 from repro_torch.fhe_ml.executor import interpret  # noqa: E402
 from repro_torch.core import torus  # noqa: E402
 from repro_torch.core.pbs import TFHEContext  # noqa: E402
-from repro_torch.kernels import external_product, fourstep_fft, keyswitch  # noqa: E402
+from repro_torch.kernels import external_product, fourstep_fft, keyswitch, ops  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step  # noqa: E402
@@ -190,6 +193,68 @@ def test_external_product_mac_refuses_unbuilt_shape(gen):
     bsk = torch.zeros((2, 5, 2, 64), device="cuda", dtype=torch.float64)
     with pytest.raises(RuntimeError, match="external_product_mac launch failed"):
         external_product.external_product_mac(dig, bsk)
+
+
+# --- kernels.ops: the reference's f32 planes and int32 keyswitch digits --------
+
+@pytest.mark.parametrize("N", [256, 512, 2048, 8192, 65536])
+@pytest.mark.parametrize("B", [1, 3])
+def test_f32_fft_against_plain(gen, N, B):
+    """The f32 instantiations within 2e-5 of the spectrum scale of the f64
+    transform (tests/test_kernels.py's gate) and of the complex64 plain
+    version; the round trip within the reference's 0.25 sqrt(N) / 8."""
+    x = torch.randint(-(1 << 10), 1 << 10, (B, N), generator=gen,
+                      device="cuda").to(torch.float32)
+    reset_launch_counts()
+    spec = ops.negacyclic_fft(x)
+    back = ops.negacyclic_ifft(spec)
+    assert spec.dtype == back.dtype == torch.float32
+    assert launch_counts()["fft_forward"] == 1 and launch_counts()["fft_inverse"] == 1
+    want = fourstep_fft.fft_forward_plain(x.double())
+    scale = want.abs().max().item() + 1.0
+    assert (spec.double() - want).abs().max().item() <= 2e-5 * scale
+    plain = fourstep_fft.fft_forward_plain(x, torch.float32)
+    assert (spec - plain).abs().max().item() <= 2e-5 * scale
+    assert (back - fourstep_fft.fft_inverse_plain(spec, torch.float32)).abs().max().item() \
+        <= 2e-5 * x.abs().max().item()
+    assert (back - x).abs().max().item() <= 0.25 * N ** 0.5 / 8
+
+
+@pytest.mark.parametrize("B,J,K,F", [(1, 2, 2, 256), (12, 4, 2, 1024), (12, 6, 3, 2048),
+                                     (48, 4, 2, 16384), (1, 4, 2, 512), (12, 4, 2, 512)])
+def test_f32_mac_against_plain(gen, B, J, K, F):
+    """The f32 MAC within the reference's 1e-2 absolute (1e-4 relative) of
+    the f64 product and of the complex64 einsum."""
+    dig = torch.randn((B, 2, J, F), generator=gen, device="cuda") * 100
+    bsk = torch.randn((2, J, K, F), generator=gen, device="cuda")
+    reset_launch_counts()
+    got = ops.bru_mac(dig, bsk)
+    assert got.dtype == torch.float32 and launch_counts()["external_product_mac"] == 1
+    for want in (external_product.external_product_mac_plain(dig, bsk, torch.float32),
+                 external_product.external_product_mac_plain(dig.double(), bsk.double())):
+        assert torch.allclose(got.double(), want.double(), rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("B,S,T", [(1, 128, 65), (4, 1024, 513), (2, 4096, 257)])
+def test_int32_keyswitch_bit_exact(gen, B, S, T):
+    d = torch.randint(-(1 << 31), (1 << 31) - 1, (B, S), generator=gen,
+                      device="cuda").to(torch.int32)
+    k = torch.randint(-(1 << 62), 1 << 62, (S, T), generator=gen, device="cuda") * 3
+    reset_launch_counts()
+    got = ops.lpu_keyswitch_mac(d, k)
+    assert launch_counts()["keyswitch_mac"] == 1
+    assert torch.equal(got, keyswitch.keyswitch_mac_int32_plain(d, k))
+
+
+def test_int32_keyswitch_extreme_digits(gen):
+    d = torch.tensor([[-(1 << 31), (1 << 31) - 1, -1, 1, 0, 7, -7, 12345],
+                      [2139062143, 2139062144, -2139062144, -2139062145,
+                       (1 << 31) - 1, -(1 << 31), 255, -256]],
+                     dtype=torch.int32, device="cuda")
+    k = torch.randint(-(1 << 62), 1 << 62, (8, 33), generator=gen, device="cuda") * 3
+    got = ops.lpu_keyswitch_mac(d, k, block_s=8)
+    assert torch.equal(got, keyswitch.keyswitch_mac_int32_plain(d, k))
+    assert torch.equal(got, (d.to(torch.int64)[:, :, None] * k[None]).sum(1))
 
 
 @pytest.mark.parametrize("p", [TEST_PARAMS, TEST_PARAMS_K2], ids=lambda p: p.name)

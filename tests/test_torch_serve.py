@@ -550,3 +550,40 @@ def test_close_drain_false_lets_inflight_finish(pkg):
     rt.close(drain=False)
     assert pkg.value(h) == 2
     assert rt.stats["completed"] == 1 and rt.stats["abandoned"] == 0
+
+
+def test_close_joins_every_worker(ctx_2bit, tctx_2bit):
+    """`close()` returns only once every worker thread has ended, even one
+    still closing its request span after its handle resolved: a daemon
+    thread left running at interpreter exit aborts the process."""
+    from repro_torch.obs import Telemetry
+    import threading
+    workers = []
+
+    class SlowSpanEnd(Telemetry):
+        def span(self, name, cat="serve", **args):
+            inner = super().span(name, cat, **args)
+            if name != "request":
+                return inner
+
+            class Slow:
+                def set(self, **kw):
+                    inner.set(**kw)
+
+                def __enter__(self):
+                    workers.append(threading.current_thread())
+                    inner.__enter__()
+                    return self
+
+                def __exit__(self, *exc):
+                    time.sleep(0.3)
+                    return inner.__exit__(*exc)
+            return Slow()
+
+    rt = serve.ServeRuntime(tctx_2bit, fused=False, telemetry=SlowSpanEnd())
+    x = u64_to_tensor(np.asarray(ctx_2bit.encrypt(jax.random.key(4), np.array([1]))), "cpu")
+    h = rt.submit(trace(lambda v: v + np.array([1]), (1,)), [x], client_id="A")
+    h.wait(timeout=30)
+    rt.close()
+    assert len(workers) == 1 and not workers[0].is_alive()
+    assert int(tctx_2bit.decrypt(h.outputs()[0][0])) == 2
