@@ -718,9 +718,10 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
     """One wave through `Session(ctx, engine, backend="serve")`: started
     paused, every job submitted, then resumed, so all requests share the
     barrier from the first round.  The launch counts are set to 0 just
-    before `resume()` and read when the last request is done.  Times each
-    `_row_keys` call (after the device wait its host copy makes anyway),
-    and, at fused round `probe_round`, the round's wall between two
+    before `resume()` and read when the last request is done.  Reads each
+    `_row_keys` call's host time from its `row_keys` span less its `d2h`
+    child (the copies and their device wait), and, at fused round
+    `probe_round`, the round's wall between two
     synchronisations and its inputs, for a traced replay.  Raises if a
     request is not done within SERVE_TIMEOUT_S (a barrier that never
     completes fails the phase instead of hanging it)."""
@@ -728,22 +729,12 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
     from repro_torch.api import Session
     from repro_torch.kernels import _build
     from repro_torch.obs import Telemetry
-    from repro_torch.serve import scheduler as sched_mod
     tel = Telemetry(trace=True)
     sess = Session(ctx, engine, backend="serve", telemetry=tel, max_inflight=len(jobs),
                    shards=shards, start_paused=True)
     rt = sess.backend.runtime
     handles = [sess.submit(j["prog"], j["enc"], client_id=j["client"]) for j in jobs]
-    engines = [s.engine for s in rt.shards]
-    key_ms, probe, calls = [], {}, [0]
-    real_keys = sched_mod._row_keys
-
-    def timed_keys(cts, polys):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        keys = real_keys(cts, polys)
-        key_ms.append((time.perf_counter() - t0) * 1e3)
-        return keys
+    probe, calls = {}, [0]
 
     def probed(name, real):
         def run(x, polys):
@@ -759,9 +750,6 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
             return out
         return run
 
-    sched_mod._row_keys = timed_keys
-    for e in engines:
-        e.telemetry = tel
     if probe_round is not None:
         engine.lut_batch = probed("lut_batch", engine.lut_batch)
         engine.lut_batch_small = probed("lut_batch_small", engine.lut_batch_small)
@@ -774,9 +762,6 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
         outs = [h.wait(timeout=SERVE_TIMEOUT_S) for h in handles]
         torch.cuda.synchronize()
     finally:
-        sched_mod._row_keys = real_keys
-        for e in engines:
-            e.telemetry = None
         engine.__dict__.pop("lut_batch", None)
         engine.__dict__.pop("lut_batch_small", None)
     wall = time.perf_counter() - t0
@@ -785,7 +770,12 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
     rt.close()
     decrypts = [canonical(sess.decrypt_outputs(j["prog"], [o[i] for i in j["prog"].graph.outputs]))
                 for j, o in zip(jobs, outs)]
-    rounds = [e.args for e in tel.recorder.events() if e.name == "fused_round"]
+    spans = tel.recorder.spans()
+    rounds = [e.args for e in spans if e.name == "fused_round"]
+    # each row_keys span holds one d2h span, on its worker's lane
+    keys, d2h = ([s for s in sorted(spans, key=lambda s: (s.tid, s.ts)) if s.name == name]
+                 for name in ("row_keys", "d2h"))
+    key_ms = [(k.dur - c.dur) * 1e3 for k, c in zip(keys, d2h, strict=True)]
     snap = tel.snapshot()["counters"]
     stats = {k: snap[f"sched.{k}"] for k in ("fused_rounds", "logical_luts", "dispatched_luts",
                                             "padded_luts", "dedup_hits", "ks_dedup_hits")}

@@ -177,16 +177,19 @@ class TaurusEngine:
         return lwe.trivial(m, self.params.big_n)
 
     # -- PBS ------------------------------------------------------------------
-    def _observe(self, name: str, rows: int, run, pad=None):
+    def _observe(self, name: str, rows: int, run, pad=None, counted=True):
         """Run `run` under the telemetry's span and counters: `rows`
         logical rows, plus `pad` rows of padding (counted in
-        `engine.pbs_rows` and `engine.pbs_rows_padded`) where given."""
+        `engine.pbs_rows` and `engine.pbs_rows_padded`) where given.
+        `counted=False` (the keyswitch alone) opens the span only."""
         tel = self.telemetry
         if tel is None:
             return run()
         attrs = {"rows": rows} if pad is None else {"rows": rows, "padded": pad}
         with tel.span(name, cat="engine", **attrs):
             out = run()
+        if not counted:
+            return out
         tel.counter(f"engine.lut_batches_{self.kernel_backend}").inc()
         tel.counter("engine.lut_batches").inc()
         tel.counter("engine.pbs_rows").inc(rows + (pad or 0))
@@ -251,8 +254,10 @@ class TaurusEngine:
         self._require_ks_split("keyswitch/lut_batch_small")
         big_cts = big_cts.to(self.device)
         if self.kernel_backend == "fused":
-            return self.fused_pack.keyswitch(big_cts)
-        return batch_mod.keyswitch_batch(big_cts, self.ksk, self.params)
+            run = lambda: self.fused_pack.keyswitch(big_cts)
+        else:
+            run = lambda: batch_mod.keyswitch_batch(big_cts, self.ksk, self.params)
+        return self._observe("keyswitch", int(big_cts.shape[0]), run, counted=False)
 
     def lut_batch_small(self, small_cts: torch.Tensor,
                         lut_polys: torch.Tensor) -> torch.Tensor:

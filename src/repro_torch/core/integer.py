@@ -274,8 +274,8 @@ class IntegerContext:
     # pad each round to `_pad_batch` rows; off under the fused scheduler,
     # which pads the fused batch instead
     pad_batches: bool = True
-    # optional telemetry (duck-typed counter/histogram); every nonlinear
-    # round publishes integer.* series into it when set
+    # optional telemetry (duck-typed counter); every nonlinear round
+    # adds its logical rows to integer.pbs when set
     telemetry: object = None
     stats: dict = dataclasses.field(default_factory=lambda: {
         "pbs": 0, "lut_batches": 0, "batch_sizes": [], "dispatch_sizes": []})
@@ -351,12 +351,8 @@ class IntegerContext:
             self.stats["pbs"] += b
             self.stats["batch_sizes"].append(b)
             self.stats["dispatch_sizes"].append(int(dispatch.shape[0]))
-        tel = self.telemetry
-        if tel is not None:
-            tel.counter("integer.lut_batches").inc()
-            tel.counter("integer.pbs").inc(b)
-            tel.counter("integer.pbs_dispatched").inc(int(dispatch.shape[0]))
-            tel.histogram("integer.batch_rows").observe(b)
+        if self.telemetry is not None:
+            self.telemetry.counter("integer.pbs").inc(b)
         return out[:b]
 
     def _polys(self, tables: np.ndarray) -> torch.Tensor:

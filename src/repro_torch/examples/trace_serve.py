@@ -5,9 +5,10 @@
 Two radix-add clients and one encrypted-GPT-2-block client (the
 quantize-to-radix lowering from `repro_torch.fhe_ml`) run concurrently
 through `ServeRuntime` with a tracing `Telemetry` attached.  Every layer
-records spans: per-request `submit -> queue_wait -> admit -> pbs_round
-(fused batch id, dedup hits) -> completed`, the scheduler's `fused_round`
-dispatches and the engine's `lut_batch` calls.  The script writes the
+records spans: per-request `submit -> queue_wait -> admit -> row_keys
+-> pbs_round (fused batch id, dedup hits) -> completed`, the scheduler's
+`fused_round` dispatches and the engine's `lut_batch` calls (the runtime
+hands its telemetry to the engine).  The script writes the
 trace, validates it (JSON shape, span nesting, per-request coverage) and
 prints the metrics snapshot's headlines; open the file at
 https://ui.perfetto.dev or chrome://tracing.  The port of
@@ -53,8 +54,10 @@ def plaintexts():
 def check_coverage(tel, handles) -> None:
     """Per-request coverage: a submit instant, the request span, at least
     one pbs_round span nested inside it (same worker lane) with its fused
-    batch id, and a completed marker."""
+    batch id, and a completed marker; and the engine's spans, which the
+    runtime's telemetry reaches with no wiring by hand."""
     events = tel.recorder.events()
+    assert any(e.cat == "engine" for e in events), "no engine spans"
     for h in handles:
         rid = h.request.request_id
         mine = [e for e in events if e.args.get("request") == rid]
@@ -80,7 +83,6 @@ def main(argv=None) -> int:
     ctx = TFHEContext.create(generator(device, 0), params, device=device)
     engine = TaurusEngine.from_context(ctx, device=device)
     tel = Telemetry(trace=True)
-    engine.telemetry = tel          # engine-level lut_batch spans too
 
     adds, g, meta, q, wants = plaintexts()
     client = Session(ctx, engine, backend="local")

@@ -15,6 +15,9 @@ One `Telemetry` object threads through every layer of the serve path:
              complete/retry/fail — via a lock-cheap per-thread
              `TraceRecorder`, exportable as Chrome-trace JSON
              (Perfetto / chrome://tracing) or inspected in-memory.
+             Spans hold the thread's CPU time too; on a card each fused
+             round holds its device time from CUDA events, on the
+             recorder's clock.
   bandwidth  a `BandwidthLedger` accounting BSK/KSK bytes streamed per
              fused round vs. the unfused counterfactual — the paper's
              key-reuse saving as a measured quantity.

@@ -22,6 +22,7 @@ definition).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional
 
@@ -54,6 +55,11 @@ class IrInterpreter:
     slot while it joins, so the barrier never waits on a thread that is
     not computing rounds.
 
+    request: the serving request's id, carried by the fan-out threads'
+    `radix_vectors` spans (with a `telemetry`).  `rounds` and `pbs`
+    count the PBS rounds this interpreter submitted and their logical
+    rows (before any padding), over every run.
+
     Example (the in-process serving contract, no queue)::
 
         interp = IrInterpreter(ctx, engine)
@@ -64,7 +70,8 @@ class IrInterpreter:
                  pad_rounds: Optional[bool] = None,
                  intra_fuse: bool = True,
                  holds_slot: bool = False,
-                 telemetry=None):
+                 telemetry=None,
+                 request: Optional[int] = None):
         self.ctx = ctx
         self.engine = engine if engine is not None \
             else TaurusEngine.from_context(ctx, device=ctx.device)
@@ -76,7 +83,19 @@ class IrInterpreter:
                                       telemetry=telemetry)
         self.intra_fuse = intra_fuse
         self.holds_slot = holds_slot
+        self.request = request
         self._poly_cache: dict = {}
+        # the `lut` nodes' rounds and rows (radix rounds: int_ctx.stats)
+        self._lut_rounds = 0
+        self._lut_rows = 0
+
+    @property
+    def rounds(self) -> int:
+        return self.int_ctx.stats["lut_batches"] + self._lut_rounds
+
+    @property
+    def pbs(self) -> int:
+        return self.int_ctx.stats["pbs"] + self._lut_rows
 
     # -- helpers -------------------------------------------------------------
     def _lut_poly(self, table: np.ndarray) -> torch.Tensor:
@@ -115,12 +134,17 @@ class IrInterpreter:
         handoff = {"left": nt, "kept": False}
         lock = threading.Lock()
 
+        tel = self.telemetry
+
         def work(idx) -> None:
             try:
-                for v in idx:
-                    outs[v] = eval_radix_vector(
-                        self.int_ctx, n.op, spec, a[v],
-                        None if b is None else b[v], max_val=max_val)
+                with (tel.span("radix_vectors", cat="serve",
+                               request=self.request, vectors=len(idx))
+                      if tel is not None else contextlib.nullcontext()):
+                    for v in idx:
+                        outs[v] = eval_radix_vector(
+                            self.int_ctx, n.op, spec, a[v],
+                            None if b is None else b[v], max_val=max_val)
             except BaseException as err:  # noqa: BLE001 — re-raised below
                 errors.append(err)
             finally:
@@ -201,6 +225,8 @@ class IrInterpreter:
                     poly = self._lut_poly(n.attrs["table"])
                     polys = poly.expand((cts.shape[0],) + tuple(poly.shape))
                     vals[n.id] = self.engine.lut_batch(cts, polys)
+                    self._lut_rounds += 1
+                    self._lut_rows += int(cts.shape[0])
                 elif n.op in RADIX_OPS:
                     vals[n.id] = self._radix(n, vals)
                 else:

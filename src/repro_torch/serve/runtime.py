@@ -581,13 +581,15 @@ class ServeRuntime:
             self._h_queue_wait.observe(wait_s)
         span = tel.span("request", cat="serve", request=req.request_id,
                         client=req.client_id, shard=shard.index)
+        interp = None
         with span:
             try:
-                eng = shard.worker_engine()
+                eng = shard.worker_engine(req.request_id)
                 interp = IrInterpreter(self.ctx, eng,
                                        intra_fuse=self.intra_fuse,
                                        holds_slot=self.fused,
-                                       telemetry=tel)
+                                       telemetry=tel,
+                                       request=req.request_id)
                 attempt = {"n": 0}
 
                 def on_node(node_id, value):
@@ -596,10 +598,7 @@ class ServeRuntime:
                         return
                     ts = time.perf_counter()
                     for f in futs:
-                        if f.resolve(value, ts):
-                            tel.instant("output_ready", cat="serve",
-                                        request=req.request_id,
-                                        output=f.index)
+                        f.resolve(value, ts)
 
                 def step():
                     attempt["n"] += 1
@@ -633,7 +632,9 @@ class ServeRuntime:
                 if shard.scheduler is not None:
                     shard.scheduler.unregister()
                 outcome = "completed" if handle.error is None else "failed"
-                span.set(retries=handle.retries, outcome=outcome)
+                span.set(retries=handle.retries, outcome=outcome,
+                         rounds=0 if interp is None else interp.rounds,
+                         pbs=0 if interp is None else interp.pbs)
                 tel.instant(outcome, cat="serve", request=req.request_id,
                             client=req.client_id, shard=shard.index)
                 if handle.submitted_at is not None:

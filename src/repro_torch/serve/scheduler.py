@@ -18,6 +18,15 @@ On the card the leader launches the kernels of the fused round (one
 keyswitch, then n forward FFTs, MACs and inverse FFTs) for everyone; the
 workers run their requests' linear (LPU) ops and compute their rows'
 dedup keys, which copies the rows to the host.
+
+Spans (with a tracing `Telemetry`): a worker's `row_keys` (its `d2h`
+child holds the two copies to the host and any wait for the device they
+make) and `pbs_round`, both carrying the request's id; the leader's
+`fused_round`, from the gather of the round's rows to the inverse
+gather of its results, enclosing the engine's spans.  On a card each
+`fused_round` also gets its device time from two CUDA events
+(`device_ms`, and `device_gap_ms` since the engine's previous round
+ended; `TraceRecorder.device_interval`).
 """
 from __future__ import annotations
 
@@ -27,14 +36,14 @@ import threading
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.compiler.passes import fused_round_dedup
 from repro_torch.core import glwe
 from repro_torch.core.engine import TaurusEngine, validate_lut_tables
 from repro_torch.core.integer import _pad_batch
-from repro_torch.obs import StatsView, Telemetry, engine_key_bytes
+from repro_torch.obs import (NOOP_RECORDER, StatsView, Telemetry,
+                             engine_key_bytes)
 
 
 @dataclasses.dataclass
@@ -49,13 +58,16 @@ class _Pending:
     round_id: Optional[int] = None  # fused batch id, set by the leader
 
 
-def _row_keys(cts: torch.Tensor, polys: torch.Tensor) -> list:
+def _row_keys(cts: torch.Tensor, polys: torch.Tensor,
+              recorder=NOOP_RECORDER) -> list:
     """Per-row (ciphertext, LUT-poly) dedup keys: the rows' exact bytes
     (a lossy hash could merge distinct rows).  Computed on the
     REQUEST's own thread before it blocks at the barrier, so the round
     leader's critical path is a dict scan instead of a device-to-host
-    copy of the whole fused batch."""
-    ct_rows, poly_rows = cts.cpu().numpy(), polys.cpu().numpy()
+    copy of the whole fused batch.  The copies run under `recorder`'s
+    `d2h` span."""
+    with recorder.span("d2h", cat="sched"):
+        ct_rows, poly_rows = cts.cpu().numpy(), polys.cpu().numpy()
     return [(ct_rows[i].tobytes(), poly_rows[i].tobytes())
             for i in range(ct_rows.shape[0])]
 
@@ -65,13 +77,17 @@ class FusedEngineProxy:
 
     Linear ops run locally (LPU work needs no cross-request fusion);
     every `lut_batch` routes through the shared scheduler so concurrent
-    requests' rounds fuse into one BSK-streaming batch."""
+    requests' rounds fuse into one BSK-streaming batch.  `request` (the
+    serving request's id) goes on its `row_keys` and `pbs_round`
+    spans."""
 
     fused = True
 
-    def __init__(self, scheduler: "FusedLutScheduler", engine: TaurusEngine):
+    def __init__(self, scheduler: "FusedLutScheduler", engine: TaurusEngine,
+                 request: Optional[int] = None):
         self._scheduler = scheduler
         self._engine = engine
+        self.request = request
 
     @property
     def params(self):
@@ -93,9 +109,14 @@ class FusedEngineProxy:
         sched = self._scheduler
         # keys for full-row dedup AND the KS-level partial dedup — both
         # consume them on the leader's dict-scan path
-        keys = (_row_keys(cts, lut_polys)
-                if (sched.dedup or sched.ks_dedup) else None)
-        return sched.submit(self._engine, cts, lut_polys, keys)
+        keys = None
+        if sched.dedup or sched.ks_dedup:
+            rec = sched.telemetry.recorder
+            with rec.span("row_keys", cat="sched", rows=int(cts.shape[0]),
+                          request=self.request):
+                keys = _row_keys(cts, lut_polys, rec)
+        return sched.submit(self._engine, cts, lut_polys, keys,
+                            request=self.request)
 
     def lut_batch_tables(self, cts: torch.Tensor, tables) -> torch.Tensor:
         tables = validate_lut_tables(cts, tables, self.params)
@@ -167,8 +188,12 @@ class FusedLutScheduler:
         self._shard_c = ({k: tel.counter(f"{shard_ns}.{k}") for k in names}
                          if shard_ns else None)
         self._occ_hist = tel.histogram("sched.occupancy")
-        # blocked requests / active requests, bounded observability log
-        self._occupancy: collections.deque = collections.deque(maxlen=10_000)
+        # this scheduler's own occupancy (the histogram above is shared by
+        # every shard of a telemetry): its sum and count, and the last few
+        # rounds' for the elastic controller
+        self._occ_sum = 0.0
+        self._occ_rounds = 0
+        self._recent_occ: collections.deque = collections.deque(maxlen=8)
         # per-engine (bsk, ksk) byte sizes, resolved once per engine
         self._key_bytes: dict = {}
 
@@ -183,11 +208,8 @@ class FusedLutScheduler:
         dedup_hits        rows removed by online (ct, LUT) dedup
         ks_dedup_hits     rows whose keyswitch was shared (same ct,
                           different table — KS-level partial dedup)
-        occupancy         bounded deque of per-round occupancy samples
         """
-        sources: dict = dict(self._c)
-        sources["occupancy"] = self._occupancy
-        return StatsView(sources)
+        return StatsView(dict(self._c))
 
     def _inc(self, key: str, n: int = 1) -> None:
         """Bump one round counter in the shared sched.* aggregate and,
@@ -197,8 +219,9 @@ class FusedLutScheduler:
             self._shard_c[key].inc(n)
 
     # -- lifecycle -----------------------------------------------------------
-    def proxy(self, engine: TaurusEngine) -> FusedEngineProxy:
-        return FusedEngineProxy(self, engine)
+    def proxy(self, engine: TaurusEngine,
+              request: Optional[int] = None) -> FusedEngineProxy:
+        return FusedEngineProxy(self, engine, request)
 
     def register(self) -> None:
         """Mark one request as actively executing (fusion barrier width)."""
@@ -219,17 +242,19 @@ class FusedLutScheduler:
 
     @property
     def mean_occupancy(self) -> float:
-        occ = self._occupancy
-        return float(np.mean(occ)) if occ else 0.0
+        n = self._occ_rounds
+        return self._occ_sum / n if n else 0.0
 
     # -- the blocking round entry -------------------------------------------
     def submit(self, engine: TaurusEngine, cts: torch.Tensor,
-               polys: torch.Tensor, keys: Optional[list] = None) -> torch.Tensor:
+               polys: torch.Tensor, keys: Optional[list] = None,
+               request: Optional[int] = None) -> torch.Tensor:
         entry = _Pending(engine, cts, polys,
                          keys if self.dedup else None)
         deadline = time.monotonic() + self.max_wait_s
         with self.telemetry.span("pbs_round", cat="sched",
-                                 rows=int(cts.shape[0])) as sp:
+                                 rows=int(cts.shape[0]),
+                                 request=request) as sp:
             with self._cv:
                 self._pending.append(entry)
                 while entry.result is None and entry.error is None:
@@ -262,7 +287,9 @@ class FusedLutScheduler:
         if not pending:
             return
         occupancy = len(pending) / max(self._active, len(pending))
-        self._occupancy.append(occupancy)
+        self._occ_sum += occupancy
+        self._occ_rounds += 1
+        self._recent_occ.append(occupancy)
         self._occ_hist.observe(occupancy)
         groups: dict = {}
         for e in pending:
@@ -306,14 +333,21 @@ class FusedLutScheduler:
         """One fused lut_batch for every round sharing this engine's BSK;
         publishes round composition metrics and the bandwidth ledger row."""
         tel = self.telemetry
+        rec = tel.recorder
         dev = engine.device
-        cts = torch.cat([e.cts.to(dev) for e in entries], dim=0)
-        polys = torch.cat([e.polys.to(dev) for e in entries], dim=0)
-        n = int(cts.shape[0])
+        # device time from two CUDA events: before the round's first
+        # device operation (the gather) and after its last (the inverse
+        # gather); no event is made with tracing off
+        timed = rec.enabled and getattr(dev, "type", None) == "cuda"
         hits = 0
-        with tel.span("fused_round", cat="sched", round=round_id,
-                      participants=len(entries), rows=n,
+        with rec.span("fused_round", cat="sched", round=round_id,
+                      participants=len(entries),
                       occupancy=occupancy) as sp:
+            start = rec.cuda_event(dev) if timed else None
+            cts = torch.cat([e.cts.to(dev) for e in entries], dim=0)
+            polys = torch.cat([e.polys.to(dev) for e in entries], dim=0)
+            n = int(cts.shape[0])
+            sp.set(rows=n)
             all_keys: Optional[list] = None
             if self.dedup or self.ks_dedup:
                 all_keys = []
@@ -372,6 +406,10 @@ class FusedLutScheduler:
                 out = engine.lut_batch_small(body, polys)[:nb]
             else:
                 out = engine.lut_batch(body, polys)[:nb]
+            if inverse is not None:
+                out = out[torch.as_tensor(inverse, device=dev)]
+            if timed:
+                rec.device_interval(sp, start, rec.cuda_event(dev), id(engine))
         self._inc("fused_rounds")
         self._inc("logical_luts", n)
         self._inc("dedup_hits", hits)
@@ -387,8 +425,6 @@ class FusedLutScheduler:
             # key-stream traffic lands in this shard's own namespace
             tel.counter(f"{self.shard_ns}.bsk_bytes_streamed").inc(bsk_b)
             tel.counter(f"{self.shard_ns}.ksk_bytes_streamed").inc(ksk_b)
-        if inverse is not None:
-            out = out[torch.as_tensor(inverse, device=dev)]
         ofs = 0
         for e in entries:
             b = int(e.cts.shape[0])

@@ -100,10 +100,11 @@ class EngineShard:
         return self.engine.params == params
 
     # -- worker interface ----------------------------------------------------
-    def worker_engine(self):
+    def worker_engine(self, request: Optional[int] = None):
         """The engine facade a request interpreter executes against:
-        the shard scheduler's fusion proxy, or the bare engine."""
-        return (self.scheduler.proxy(self.engine)
+        the shard scheduler's fusion proxy (its spans carry `request`),
+        or the bare engine."""
+        return (self.scheduler.proxy(self.engine, request)
                 if self.scheduler is not None else self.engine)
 
     def acquire(self) -> None:
@@ -133,10 +134,9 @@ class EngineShard:
         'are my barriers full?' signal."""
         if self.scheduler is None:
             return None
-        occ = self.scheduler._occupancy
-        if not occ:
+        recent = self.scheduler._recent_occ
+        if not recent:
             return None
-        recent = list(occ)[-8:]
         return float(sum(recent) / len(recent))
 
     def elastic_observe(self, queue_depth: int) -> bool:
@@ -172,6 +172,11 @@ def build_shards(ctx, engine: Optional[TaurusEngine] = None, *,
 
     `device_sets` overrides `launch.mesh.shard_devices(n_shards,
     [ctx.device])` — one device tuple per shard.
+
+    The shards' telemetry also goes to every engine that has none (the caller's
+    engine keeps its own), so the engines' spans and `engine.*`
+    counters land beside the scheduler's: inside each `fused_round` the
+    engine spans are the leader's time to enqueue the round's launches.
     """
     if n_shards < 1:
         raise ConfigError(f"shards must be >= 1, got {n_shards}")
@@ -207,9 +212,12 @@ def build_shards(ctx, engine: Optional[TaurusEngine] = None, *,
             # ConfigError): a multi-device fused shard runs on devs[0]
             eng = TaurusEngine.from_context(ctx, device=devs[0],
                                             kernel_backend=kb)
-        shards.append(EngineShard(
+        shard = EngineShard(
             i, ctx, eng, fused=fused, dedup=dedup, ks_dedup=ks_dedup,
             max_inflight=max_inflight,
             elastic=ElasticAdmission(policy) if policy is not None else None,
-            telemetry=telemetry, devices=devs))
+            telemetry=telemetry, devices=devs)
+        if getattr(eng, "telemetry", None) is None:
+            eng.telemetry = shard.telemetry
+        shards.append(shard)
     return shards

@@ -465,6 +465,95 @@ def test_two_shards_share_one_pack_on_the_card(ctx_6bit, serve_jobs):
     assert counts["keyswitch_mac"] == c["sched.fused_rounds"]
 
 
+def test_traced_wave_times_each_fused_round_on_the_card(ctx_6bit, serve_jobs):
+    """A traced wave, the engine's telemetry handed over by the runtime:
+    every fused round gets its device time from two CUDA events
+    (`device_ms` > 0; `device_gap_ms` >= 0 from the second round on);
+    the device lane's intervals are disjoint and lie in the wave's host
+    wall; from the first round's start to the last round's end the
+    device's time in and between rounds sums to the host's within 5%."""
+    import time
+    from repro_torch.obs import Telemetry, validate_chrome_trace
+    ctx, _ = ctx_6bit
+    _, jobs, eager = serve_jobs
+    tel = Telemetry(trace=True)
+    sess = Session(ctx, backend="serve", max_inflight=len(jobs), start_paused=True,
+                   telemetry=tel)
+    handles = [sess.submit(p, enc, client_id=c) for c, p, enc in jobs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.backend.runtime.resume()
+    outs = [h.wait(timeout=600) for h in handles]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = [plain(sess.decrypt_outputs(p, [o[i] for i in p.graph.outputs]))
+           for (_, p, _), o in zip(jobs, outs)]
+    sess.close()
+    assert got == eager
+    spans = tel.recorder.spans()
+    rounds = [s for s in spans if s.name == "fused_round"]
+    lane = [s for s in spans if s.name == "device_round"]
+    assert len(rounds) == len(lane) > 1
+    assert all(r.args["device_ms"] > 0 for r in rounds)
+    assert "device_gap_ms" not in rounds[0].args
+    assert all(r.args["device_gap_ms"] >= 0 for r in rounds[1:])
+    assert all(a.ts + a.dur <= b.ts for a, b in zip(lane, lane[1:]))
+    assert t0 <= lane[0].ts and lane[-1].ts + lane[-1].dur <= t1
+    device_s = (sum(r.args["device_ms"] for r in rounds)
+                + sum(r.args["device_gap_ms"] for r in rounds[1:])) / 1e3
+    host_s = rounds[-1].ts + rounds[-1].dur - rounds[0].ts
+    print(f"traced wave on {torch.cuda.get_device_name()}: {len(rounds)} fused rounds, "
+          f"device in and between rounds {device_s:.6f} s, host first round's start to "
+          f"last round's end {host_s:.6f} s, wave {t1 - t0:.6f} s")
+    assert abs(device_s - host_s) <= 0.05 * host_s
+    assert validate_chrome_trace(tel.chrome_trace()) > len(spans)
+
+
+def test_engine_spans_enclose_their_launches_on_the_profilers_clock(ctx_6bit):
+    """A profiled round: its `lut_batch` span, put on torch.profiler's
+    clock by `to_profiler_us`, encloses every kernel launch the profiler
+    saw the round make, within 0.2 ms."""
+    import json
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import glwe
+    from repro_torch.obs import Telemetry
+    ctx, gen = ctx_6bit
+    p = ctx.params
+    rows = 12
+    cts = ctx.encrypt(gen, torch.arange(rows, device="cuda") % p.plaintext_modulus)
+    polys = glwe.make_lut_polys_cached(
+        torch.tensor([list(range(p.plaintext_modulus))] * rows), p, device="cuda")
+    tel = Telemetry(trace=True)
+    engine = TaurusEngine.from_context(ctx, telemetry=tel)
+    engine.lut_batch(cts, polys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.lut_batch(cts, polys)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "round.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            obj = json.load(f)
+    base_us = obj.get("baseTimeNanoseconds", 0) / 1e3
+    launches = [(e["ts"] + base_us, e["ts"] + base_us + e["dur"])
+                for e in obj["traceEvents"]
+                if str(e.get("cat", "")).startswith("cuda_") and "Launch" in e["name"]
+                and "dur" in e]
+    span = [s for s in tel.recorder.spans() if s.name == "lut_batch"][-1]
+    lo = tel.recorder.to_profiler_us(span.ts)
+    hi = tel.recorder.to_profiler_us(span.ts + span.dur)
+    after_start = min(a for a, _ in launches) - lo
+    before_end = hi - max(b for _, b in launches)
+    print(f"profiled round on {torch.cuda.get_device_name()}: {len(launches)} launches; "
+          f"the first starts {after_start:.1f} us after the span's start, the last ends "
+          f"{before_end:.1f} us before its end (span {span.dur * 1e6:.1f} us)")
+    assert len(launches) >= 3 * p.n
+    assert after_start >= -200 and before_end >= -200
+
+
 # --- the XPU baseline and the traffic simulator on the card ---------------------
 
 @pytest.mark.parametrize("p", [TEST_PARAMS, TEST_PARAMS_K2], ids=lambda p: p.name)

@@ -32,10 +32,12 @@ from repro_torch import obs as tobs  # noqa: E402
 from repro_torch.compiler.ir import trace  # noqa: E402
 from repro_torch.core.engine import TaurusEngine  # noqa: E402
 from repro_torch.core.integer import IntegerContext  # noqa: E402
+from repro_torch.core.params import TFHEParams  # noqa: E402
+from repro_torch.core.pbs import TFHEContext  # noqa: E402
 from repro_torch.interop import u64_to_tensor  # noqa: E402
 from repro_torch.runtime.fault import FaultConfig  # noqa: E402
 from repro_torch.serve import (ServeRuntime, decrypt_radix_output,  # noqa: E402
-                               radix_binop_program)
+                               encrypt_request_inputs, radix_binop_program)
 from test_torch_api import port_context  # noqa: E402
 
 PKGS = {"reference": jobs, "port": tobs}
@@ -472,3 +474,177 @@ def test_fused_wave_publishes_scheduler_and_bandwidth(ctx_4bit, engine_4bit):
     assert len(fused) == c["sched.fused_rounds"]
     assert all(e.args["participants"] == len(encs) for e in fused)
     assert tobs.validate_chrome_trace(json.dumps(tel.chrome_trace())) > 0
+
+
+# --- the served round's timing spans (port only) -----------------------------
+
+# 2 message + 2 carry bits at a size the CPU runs fast; decrypts exactly
+OBS_PARAMS = TFHEParams(name="test-obs-4bit", n=48, N=1024, k=1, width=4,
+                        pbs_base_log=15, pbs_level=2, ks_base_log=4, ks_level=5,
+                        lwe_std=2.0 ** -45, glwe_std=2.0 ** -45)
+# logical PBS of one 8-bit request of 2-bit digits (perfbench/programs/)
+PBS_PER_REQUEST = {"radix_add": 20, "radix_mul": 32}
+ENGINE_SPANS = ("keyswitch", "lut_batch", "lut_batch_small")
+
+
+def obs_wave(tel, jobs):
+    """One paused-then-resumed fused wave of 8-bit `(op, a, b)` jobs on the
+    OBS_PARAMS keys; returns the runtime, the jobs' handles and their
+    decrypted sums / products."""
+    ctx = TFHEContext.create(torch.Generator().manual_seed(21), OBS_PARAMS, device="cpu")
+    ic = IntegerContext.create(ctx)
+    rt = ServeRuntime(ctx, max_inflight=len(jobs), start_paused=True, telemetry=tel)
+    for s in rt.shards:
+        s.scheduler.max_wait_s = 600.0
+    gen = torch.Generator().manual_seed(22)
+    handles = [rt.submit(radix_binop_program(op, BITS, 2),
+                         encrypt_request_inputs(ic, gen, [a, b], BITS, 2),
+                         client_id=f"c{i}")
+               for i, (op, a, b) in enumerate(jobs)]
+    rt.resume()
+    rt.close()
+    got = [decrypt_radix_output(ic, h.outputs()[0], BITS, 2)[0] for h in handles]
+    return rt, handles, got
+
+
+OBS_JOBS = [("radix_add", 17, 201), ("radix_add", 90, 90), ("radix_mul", 13, 11)]
+
+
+@pytest.fixture(scope="module")
+def traced_wave():
+    """The jobs served under a tracing telemetry, with every CUDA event the
+    recorder is asked for counted (none may be, on the CPU)."""
+    tel = tobs.Telemetry(trace=True)
+    asked = []
+    real = tobs.TraceRecorder.cuda_event
+    tobs.TraceRecorder.cuda_event = lambda self, device: asked.append(device)
+    try:
+        rt, handles, got = obs_wave(tel, OBS_JOBS)
+    finally:
+        tobs.TraceRecorder.cuda_event = real
+    assert got == [(a + b) % 256 if op == "radix_add" else (a * b) % 256
+                   for op, a, b in OBS_JOBS]
+    return tel, rt, handles, tel.recorder.spans(), asked
+
+
+def inside(kid, parent, eps=1e-9) -> bool:
+    return (kid.tid == parent.tid and kid.ts >= parent.ts - eps
+            and kid.ts + kid.dur <= parent.ts + parent.dur + eps)
+
+
+def test_request_spans_count_their_rounds_and_pbs(traced_wave):
+    _, _, handles, spans, _ = traced_wave
+    for h, (op, _, _) in zip(handles, OBS_JOBS):
+        rid = h.request.request_id
+        (req,) = [s for s in spans if s.name == "request" and s.args["request"] == rid]
+        rounds = [s for s in spans if s.name == "pbs_round" and s.args["request"] == rid]
+        assert req.args["outcome"] == "completed"
+        assert req.args["pbs"] == PBS_PER_REQUEST[op]
+        assert req.args["rounds"] == len(rounds) > 0
+        assert sum(s.args["rows"] for s in rounds) == req.args["pbs"]
+
+
+def test_row_keys_spans_cover_every_logical_lut(traced_wave):
+    tel, _, _, spans, _ = traced_wave
+    rows = sum(s.args["rows"] for s in spans if s.name == "row_keys")
+    assert rows == tel.snapshot()["counters"]["sched.logical_luts"] > 0
+
+
+def test_worker_spans_carry_their_requests_id(traced_wave):
+    """Every d2h lies in a row_keys on its lane; every row_keys and
+    pbs_round carries the id of the request span it lies in."""
+    _, _, handles, spans, _ = traced_wave
+    keys = [s for s in spans if s.name == "row_keys"]
+    assert all(any(inside(d, k) for k in keys) for d in spans if d.name == "d2h")
+    assert len([s for s in spans if s.name == "d2h"]) == len(keys)
+    ids = {h.request.request_id for h in handles}
+    owners = [s for s in spans if s.name in ("request", "radix_vectors")]
+    for s in spans:
+        if s.name in ("row_keys", "pbs_round"):
+            assert s.args["request"] in ids
+            assert any(inside(s, o) and o.args["request"] == s.args["request"]
+                       for o in owners), s
+
+
+def test_fused_rounds_enclose_the_engines_spans(traced_wave):
+    """The runtime hands its telemetry to the engine: every engine span
+    lies in a fused_round on the leader's lane, every round has one, and
+    the KS-dedup rounds key-switch under their own span."""
+    tel, _, _, spans, _ = traced_wave
+    rounds = [s for s in spans if s.name == "fused_round"]
+    engine = [s for s in spans if s.cat == "engine"]
+    assert {s.name for s in engine} <= set(ENGINE_SPANS)
+    assert "keyswitch" in {s.name for s in engine}
+    assert all(any(inside(e, r) for r in rounds) for e in engine)
+    assert all(any(inside(e, r) for e in engine) for r in rounds)
+    c = tel.snapshot()["counters"]
+    assert len(rounds) == c["sched.fused_rounds"] == c["engine.lut_batches"]
+    assert c["sched.ks_dedup_hits"] > 0
+
+
+def test_spans_carry_cpu_time_and_the_cpu_no_device_time(traced_wave):
+    tel, _, _, spans, asked = traced_wave
+    timed = [s for s in spans if s.name != "queue_wait"]
+    assert timed and all(s.cpu is not None and 0 <= s.cpu <= s.dur + 1e-3 for s in timed)
+    assert all(s.cpu is None for s in spans if s.name == "queue_wait")
+    assert all(e.cpu is None for e in tel.recorder.events() if e.dur is None)
+    assert not any("device_ms" in s.args or "device_gap_ms" in s.args for s in spans)
+    assert not any(s.cat == "device" for s in spans) and asked == []
+
+
+def test_traced_wave_exports_a_valid_chrome_trace(traced_wave, tmp_path):
+    tel, _, _, spans, _ = traced_wave
+    path = tel.write_chrome_trace(str(tmp_path / "wave.json"))
+    assert tobs.validate_chrome_trace(path) > len(spans)
+    with open(path) as f:
+        xs = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    assert all(e["args"]["cpu_us"] >= 0 for e in xs if e["name"] != "queue_wait")
+
+
+def test_untraced_wave_records_nothing_and_reads_no_cpu_clock(monkeypatch):
+    """Tracing off: the recorder holds nothing, no thread CPU clock is
+    read, and the engine's counters still land in the runtime's
+    telemetry with no hand wiring."""
+    reads = []
+    real = time.thread_time
+    monkeypatch.setattr(time, "thread_time", lambda: reads.append(1) or real())
+    tel = tobs.Telemetry()
+    rt, _, got = obs_wave(tel, OBS_JOBS[:1])
+    monkeypatch.undo()
+    assert got == [(17 + 201) % 256] and reads == []
+    assert tel.recorder.events() == [] and tel.chrome_trace()["traceEvents"] == []
+    c = tel.snapshot()["counters"]
+    assert c["engine.lut_batches"] == c["sched.fused_rounds"] > 0
+    assert rt.engine.telemetry is tel
+
+
+def test_build_shards_keeps_an_engines_own_telemetry(ctx_2bit):
+    tctx = port_context(ctx_2bit)
+    own = tobs.Telemetry()
+    mine = TaurusEngine.from_context(tctx, device="cpu", telemetry=own)
+    rt = ServeRuntime(tctx, mine, shards=2, telemetry=tobs.Telemetry())
+    assert rt.shards[0].engine.telemetry is own
+    assert rt.shards[1].engine.telemetry is rt.telemetry
+    rt.close()
+
+
+def test_to_profiler_us_puts_spans_on_the_profilers_clock(tmp_path):
+    """A span around a matmul, mapped onto torch.profiler's unix-epoch
+    clock, encloses the profiler's event for that matmul within 0.2 ms."""
+    from torch.profiler import ProfilerActivity, profile
+    rec = tobs.TraceRecorder()
+    x = torch.randn(128, 128)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with rec.span("matmul", cat="test"):
+            x @ x
+    path = str(tmp_path / "prof.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        obj = json.load(f)
+    base_us = obj.get("baseTimeNanoseconds", 0) / 1e3
+    ops = [e for e in obj["traceEvents"] if e.get("name") == "aten::matmul"]
+    (span,) = rec.spans()
+    lo, hi = rec.to_profiler_us(span.ts), rec.to_profiler_us(span.ts + span.dur)
+    assert ops
+    for e in ops:
+        assert lo - 200 <= e["ts"] + base_us <= e["ts"] + base_us + e["dur"] <= hi + 200
