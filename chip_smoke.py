@@ -168,6 +168,15 @@ last,
 `{"kernels": ...}` one, and a `{"dryrun": ..., "examples": ...}` line
 just before it.  Any failure raises and exits nonzero.
 Needs CUDA; imports nothing of JAX.
+
+Launch counts are the kernels executed, counted by kernel name.  From
+the second call at a row count on, the fused pack replays the blind
+rotation as a captured CUDA graph (`FusedPbsPack.pbs_from_small`), and
+each replay adds the graph's captured launches (n of each FFT and of
+the MAC) to the counts, so every check of launches per round reads as
+it does for launches made one by one.  Each line that prints launch
+counts prints beside them how the pack ran the same rounds' blind
+rotations (`FusedPbsPack.rotations()`: eager, captured, replayed).
 """
 from __future__ import annotations
 
@@ -398,9 +407,18 @@ def profile_round(run, untraced_s: float, smi: str, steps: int,
                           sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]}}
 
 
+def rotations_since(pack, before: dict) -> dict:
+    """How `pack` ran its blind rotations since `before`, an earlier
+    `pack.rotations()`: {"eager", "capture", "replay"} counts."""
+    now = pack.rotations()
+    return {k: now[k] - before[k] for k in now}
+
+
 class RoundLog:
     """Duck-typed engine telemetry: one (name, rows, wall seconds) entry
-    per PBS round, timed between two device synchronisations."""
+    per PBS round, timed between two device synchronisations.  A round
+    split into `keyswitch` and `lut_batch_small` logs the second only:
+    the keyswitch's span is not a round."""
 
     class _Null:
         def inc(self, n=1):
@@ -417,9 +435,13 @@ class RoundLog:
         import torch
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        yield
+        yield self
         torch.cuda.synchronize()
-        self.rounds.append((name, rows, time.perf_counter() - t0))
+        if name != "keyswitch":
+            self.rounds.append((name, rows, time.perf_counter() - t0))
+
+    def set(self, **_):
+        pass
 
     def counter(self, name):
         return self._Null()
@@ -515,11 +537,12 @@ def radix_phase(ctx, smi: str) -> dict:
                                  f"{QUICKSTART_ROWS}")
         torch.cuda.synchronize()
         _build.reset_launch_counts()
+        before = engine.fused_pack.rotations()
         t0 = time.perf_counter()
         outs = sess.run(prog, enc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = _build.launch_counts()
+        counts, graphs = _build.launch_counts(), rotations_since(engine.fused_pack, before)
         engine.telemetry = None
         got = sess.decrypt_outputs(prog, outs)
         got = [int(got[0]), [int(v) for v in got[1]]]
@@ -531,7 +554,8 @@ def radix_phase(ctx, smi: str) -> dict:
         print(f"radix {backend}: a={a} b={b} decrypt {got} oracle {want}; rounds "
               f"planned {len(plan)} observed {nr}; PBS logical planned {plan_logical} observed "
               f"{logical}, dispatched planned {sum(plan)} observed "
-              f"{sum(rows)}; program wall {wall:.3f} s; launches {counts} on {smi}")
+              f"{sum(rows)}; program wall {wall:.3f} s; launches {counts}, graphs {graphs} "
+              f"on {smi}")
         for i, (name, r, sec) in enumerate(log.rounds):
             print(f"  round {i + 1:2d} {name:15s} rows {r:4d} {sec * 1e3:9.2f} ms")
         if got != want:
@@ -544,7 +568,7 @@ def radix_phase(ctx, smi: str) -> dict:
         results[backend] = {"a": a, "b": b, "decrypt": got, "oracle": want,
                             "rounds_planned": len(plan), "rounds_observed": nr,
                             "pbs_logical": logical, "pbs_dispatched": sum(rows),
-                            "wall_s": wall, "launches": counts,
+                            "wall_s": wall, "launches": counts, "graphs": graphs,
                             "rounds": [{"op": name, "rows": r, "wall_ms": sec * 1e3}
                                        for name, r, sec in log.rounds]}
     largest["wall_s"] = next(r["wall_ms"] for r in results["eager"]["rounds"]
@@ -570,6 +594,7 @@ def run_planned(sess, prog, enc, what: str, smi: str) -> dict:
     log = engine.telemetry = RoundLog()
     torch.cuda.synchronize()
     _build.reset_launch_counts()
+    before = engine.fused_pack.rotations()
     t0 = time.perf_counter()
     try:
         outs = sess.run(prog, enc)
@@ -577,7 +602,7 @@ def run_planned(sess, prog, enc, what: str, smi: str) -> dict:
     finally:
         engine.telemetry = None
     wall = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts, graphs = _build.launch_counts(), rotations_since(engine.fused_pack, before)
     rows = [r[1] for r in log.rounds]
     ms = [r[2] * 1e3 for r in log.rounds]
     logical = logical_pbs(sess.backend, graph)
@@ -585,12 +610,13 @@ def run_planned(sess, prog, enc, what: str, smi: str) -> dict:
            "rows_planned": sum(dry.rows), "rows_observed": sum(rows),
            "max_rows": max(rows), "pbs_logical_planned": plan_logical,
            "pbs_logical": logical, "pbs_dispatched": sum(rows), "launches": counts,
-           "launches_planned": plan_launches, "wall_s": wall,
+           "graphs": graphs, "launches_planned": plan_launches, "wall_s": wall,
            "round_ms": {"mean": statistics.mean(ms), "min": min(ms), "max": max(ms)},
            "rounds": [{"rows": r, "wall_ms": t} for r, t in zip(rows, ms)]}
     print(f"{what}: PBS calls planned {len(dry.rows)} observed {len(rows)}, rows planned "
           f"{sum(dry.rows)} observed {sum(rows)} (at most {max(rows)} a call); PBS logical "
-          f"planned {plan_logical} observed {logical}; launches {counts}; program wall "
+          f"planned {plan_logical} observed {logical}; launches {counts}, graphs {graphs}; "
+          f"program wall "
           f"{wall:.3f} s, round mean {obs['round_ms']['mean']:.2f} min {min(ms):.2f} max "
           f"{max(ms):.2f} ms on {smi}")
     if rows != dry.rows or logical != plan_logical:
@@ -756,6 +782,7 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
+    before = engine.fused_pack.rotations()
     t0 = time.perf_counter()
     try:
         rt.resume()
@@ -765,7 +792,7 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
         engine.__dict__.pop("lut_batch", None)
         engine.__dict__.pop("lut_batch_small", None)
     wall = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts, graphs = _build.launch_counts(), rotations_since(engine.fused_pack, before)
     peak = torch.cuda.max_memory_allocated()
     rt.close()
     decrypts = [canonical(sess.decrypt_outputs(j["prog"], [o[i] for i in j["prog"].graph.outputs]))
@@ -782,7 +809,7 @@ def serve_wave(ctx, engine, jobs, smi: str, shards: int = 1,
     stats["per_shard_rounds"] = [snap[f"serve.shard.{i}.fused_rounds"]
                                  for i in range(len(rt.shards))]
     return {"shards": shards, "decrypts": decrypts, "wall_s": wall, "launches": counts,
-            "peak_gb": peak / 1e9, "stats": stats, "rounds": rounds, "counters": snap,
+            "graphs": graphs, "peak_gb": peak / 1e9, "stats": stats, "rounds": rounds, "counters": snap,
             "row_keys_ms": key_ms, "probe": probe, "runtime": rt,
             "occupancy": [s.scheduler.mean_occupancy for s in rt.shards]}
 
@@ -843,7 +870,8 @@ def serve_phase(ctx, engine, radix, fhe, peaks: tuple, smi: str) -> dict:
           f"{st1['ks_dedup_hits']}; occupancy {one['occupancy'][0]:.3f}; _row_keys "
           f"{keys_total:.2f} ms in {len(one['row_keys_ms'])} calls "
           f"({keys_total / st1['fused_rounds']:.3f} ms per fused round, "
-          f"{st.mean(one['row_keys_ms']):.3f} ms per call); launches {one['launches']}; "
+          f"{st.mean(one['row_keys_ms']):.3f} ms per call); launches {one['launches']}, "
+          f"graphs {one['graphs']}; "
           f"peak device memory {one['peak_gb']:.2f} GB on {smi}")
     for j, got in zip(jobs, one["decrypts"]):
         print(f"serve client {j['client']}: decrypt {got} oracle {j['oracle']} eager "
@@ -960,16 +988,17 @@ def xpu_phase(ctx, engine, peaks, smi: str) -> dict:
                       ("xpu", lambda: engine.lut_batch_xpu(cts, polys))):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
+        before = engine.fused_pack.rotations()
         t0 = time.perf_counter()
         refreshed = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = _build.launch_counts()
+        counts, graphs = _build.launch_counts(), rotations_since(engine.fused_pack, before)
         got = ctx.decrypt(refreshed).cpu().tolist()
         rounds = 1 if name == "batched" else B
         expect = {k: rounds * v for k, v in per_round.items()}
         print(f"xpu phase, {name}: {B} PBS in {rounds} round(s), wall {wall:.3f} s, "
-              f"launches {counts}; decrypt {got} want {want} on {smi}")
+              f"launches {counts}, graphs {graphs}; decrypt {got} want {want} on {smi}")
         if got != want:
             raise AssertionError(f"xpu phase, {name}: decrypts {got}, tables give {want}")
         if counts != expect:
@@ -977,7 +1006,8 @@ def xpu_phase(ctx, engine, peaks, smi: str) -> dict:
         prof = profile_round(run, wall, smi, rounds * p.n, f"profile_xpu_{name}.json",
                              other=200 * rounds)
         del prof["result"]
-        runs[name] = {"wall_s": wall, "launches": counts, "decrypt": got, **prof}
+        runs[name] = {"wall_s": wall, "launches": counts, "graphs": graphs, "decrypt": got,
+                      **prof}
     bat, xpu = runs["batched"], runs["xpu"]
     model = pbs_round_model(p, B, peaks)
     dry = {r["variant"]: r for r in pbs_dryrun.run(p.name, B, peaks)}
@@ -1035,13 +1065,14 @@ def sim_phase(ctx, engine, peaks, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
+    before = engine.fused_pack.rotations()
     t0 = time.perf_counter()
     worker = threading.Thread(target=work, daemon=True)
     worker.start()
     worker.join(SIM_TIMEOUT_S)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts, graphs = _build.launch_counts(), rotations_since(engine.fused_pack, before)
     engine.telemetry = None
     if worker.is_alive():
         raise AssertionError(f"sim: the suite did not finish within {SIM_TIMEOUT_S} s")
@@ -1053,7 +1084,8 @@ def sim_phase(ctx, engine, peaks, smi: str) -> dict:
     expect = {"keyswitch_mac": rounds, "fft_forward": rounds * p.n,
               "fft_inverse": rounds * p.n, "external_product_mac": rounds * p.n}
     print(f"sim: capacity anchor {res['capacity_rps']:.4f} requests/s; {rounds} engine PBS "
-          f"rounds, launches {counts}; phase wall {wall:.3f} s; peak device memory "
+          f"rounds, launches {counts}, graphs {graphs}; phase wall {wall:.3f} s; peak device "
+          f"memory "
           f"{peak:.2f} GB on {smi}")
     scenarios = standard_suite(capacity_rps=res["capacity_rps"], duration_s=SIM_DURATION_S)
     for sc, row in zip(scenarios, res["rows"]):
@@ -1089,7 +1121,7 @@ def sim_phase(ctx, engine, peaks, smi: str) -> dict:
           "plain version")
     at_rows = kernels_at_rows(cts, engine.fused_pack, gen, peaks, smi)
     return {"capacity_rps": res["capacity_rps"], "duration_s": SIM_DURATION_S,
-            "rows": res["rows"], "engine_rounds": rounds, "launches": counts,
+            "rows": res["rows"], "engine_rounds": rounds, "launches": counts, "graphs": graphs,
             "wall_s": wall, "peak_gb": peak, "largest_round_rows": largest,
             "kernels": at_rows}
 
@@ -2350,7 +2382,7 @@ def main() -> int:
     c2 = _build.launch_counts()
     assert engine.fused_pack is pack, "the pack was rebuilt between rounds"
     round2 = {k: c2[k] - c1[k] for k in c2}
-    print(f"launches round 1 {c1}, round 2 {round2}")
+    print(f"launches round 1 {c1}, round 2 {round2}; graphs {pack.rotations()}")
     if c1 != per_round or round2 != per_round:
         raise AssertionError(f"launch counts per round should be {per_round}")
     dec1, dec2 = ctx.decrypt(out1).cpu(), ctx.decrypt(out2).cpu()

@@ -15,7 +15,9 @@ runs `repro_torch.kernels.fused_pbs` — the FFT / external-product /
 keyswitch stages as hand-written CUDA kernels against a `FusedPbsPack`
 of resident transform-domain key operands, built lazily on first use,
 shared by every engine of one key and reused across every round (the
-paper's key-reuse strategy).
+paper's key-reuse strategy).  On a card the pack replays each round's
+blind rotation as a captured CUDA graph (`FusedPbsPack.pbs_from_small`);
+the telemetry counts how each rotation ran.
 `"reference"` runs the plain PyTorch pipeline in `repro_torch.core.batch`.
 Both are decrypt-identical; the keyswitch stage is bit-identical.
 
@@ -37,6 +39,9 @@ from repro_torch.launch.mesh import ClusterMesh, shard_mesh
 
 I64 = torch.int64
 KERNEL_BACKENDS = ("fused", "reference")
+# how the fused pack ran a blind rotation -> the counter of such rotations
+GRAPH_COUNTERS = {"replay": "engine.graph_replays", "capture": "engine.graph_captures",
+                  "eager": "engine.graph_eager"}
 
 
 class ConfigError(ValueError):
@@ -181,15 +186,23 @@ class TaurusEngine:
         """Run `run` under the telemetry's span and counters: `rows`
         logical rows, plus `pad` rows of padding (counted in
         `engine.pbs_rows` and `engine.pbs_rows_padded`) where given.
-        `counted=False` (the keyswitch alone) opens the span only."""
+        `counted=False` (the keyswitch alone) opens the span only.  A
+        blind rotation the fused pack ran on a card gives the span the
+        arg `graph` and a count in `engine.graph_replays` / `_captures` /
+        `_eager`."""
         tel = self.telemetry
         if tel is None:
             return run()
         attrs = {"rows": rows} if pad is None else {"rows": rows, "padded": pad}
-        with tel.span(name, cat="engine", **attrs):
+        with tel.span(name, cat="engine", **attrs) as sp:
             out = run()
+            how = self._rotation() if counted else None
+            if how is not None:
+                sp.set(graph=how)
         if not counted:
             return out
+        if how is not None:
+            tel.counter(GRAPH_COUNTERS[how]).inc()
         tel.counter(f"engine.lut_batches_{self.kernel_backend}").inc()
         tel.counter("engine.lut_batches").inc()
         tel.counter("engine.pbs_rows").inc(rows + (pad or 0))
@@ -197,6 +210,13 @@ class TaurusEngine:
             tel.counter("engine.pbs_rows_padded").inc(pad)
         tel.histogram("engine.lut_batch_rows").observe(rows)
         return out
+
+    def _rotation(self):
+        """How the fused pack ran this thread's last blind rotation
+        (`FusedPbsPack.last_rotation`); None on the CPU and off the pack."""
+        if self.mesh is not None or self.kernel_backend != "fused":
+            return None
+        return self.fused_pack.last_rotation()
 
     def _mesh_round(self, cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
         """One PBS round over the clusters: the (padded) rows split evenly,

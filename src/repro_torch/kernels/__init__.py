@@ -19,6 +19,6 @@
 Sources live in `csrc/` and build with `nvcc` at first use (`_build`).
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version only for CPU tensors; `launch_counts()` reads how often
-each kernel was launched.
+each kernel was launched (a replayed CUDA graph's kernels included).
 """
 from repro_torch.kernels._build import launch_counts, reset_launch_counts  # noqa: F401

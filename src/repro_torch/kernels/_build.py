@@ -11,9 +11,16 @@ library as `<lib>.log`.
 Every exported launcher returns `cudaGetLastError()` after its launches;
 `launch` turns a nonzero code into an exception.  Nothing here runs at
 import time: the CPU tests import every module and have no `nvcc`.
+
+A launch enqueued into a CUDA graph under capture runs only when the
+graph is replayed.  So inside `capturing()` a thread's launches go to
+the graph's own tally, and `replayed(tally)` adds that tally to the
+counts at each replay: `launch_counts()` counts the kernels executed,
+under their names, whether launched one by one or replayed in a graph.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,6 +42,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"keyswitch_mac": 0, "fft_forward": 0, "fft_inverse": 0,
             "external_product_mac": 0}
 _COUNT_LOCK = threading.Lock()
+_CAPTURE = threading.local()    # .tally: the graph this thread captures into
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
@@ -50,6 +58,27 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """This thread's launches inside the block go into the yielded tally
+    (kernel -> launches), not into the counts: the caller is capturing
+    them into a graph."""
+    tally = dict.fromkeys(LAUNCHES, 0)
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
+
+
+def replayed(tally: dict) -> None:
+    """Count the launches of one replay of a graph whose captured
+    launches are `tally`."""
+    with _COUNT_LOCK:
+        for k, n in tally.items():
+            LAUNCHES[k] += n
 
 
 def _nvcc() -> str:
@@ -134,6 +163,10 @@ def launch(kernel: str, fn, *args, device: torch.device) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
                            f"({fn.error_string(rc).decode()})")
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[kernel] += 1
+        return
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
 

@@ -25,9 +25,22 @@ the reference engine keeps), and every later round reads the same
 device tensors.  The pack is f64 only (an f32 transform voids
 decryption on the 64-bit torus), and the TPU's tiling knobs (`block_f`,
 `block_s`, `interpret`) have no counterpart here.
+
+On a card the pack replays the PBS after its keyswitch (mod switch,
+blind rotation, sample extract: `pbs_small_fused`, 3n launches) as one
+captured CUDA graph, so a round costs the host one graph launch, not 3n
+Python launches (`FusedPbsPack.pbs_from_small`).  A graph is kept per
+(rows, device, current stream): the first call at a key runs eagerly,
+the second captures and replays, later ones replay; `GRAPHS_PER_PACK`
+graphs at most, the least recently used evicted.  A replay runs the
+same kernels on the same operands, so its output is bit-identical to
+the eager launches'.  The keyswitch stays one eager launch, and CPU
+tensors take the plain path, never captured.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import threading
 
@@ -36,7 +49,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import batch as batch_mod, decompose as dec, glwe, lwe
 from repro_torch.core.params import TFHEParams
-from repro_torch.kernels import external_product, fourstep_fft, keyswitch
+from repro_torch.kernels import _build, external_product, fourstep_fft, keyswitch
 
 
 def bsk_to_planes(bsk_f: torch.Tensor) -> torch.Tensor:
@@ -119,6 +132,114 @@ def pbs_batch_fused(big_cts: torch.Tensor, lut_polys: torch.Tensor,
 _PACKS = WeakIdKeyDictionary()
 _PACKS_LOCK = threading.Lock()
 
+# Captured graphs a pack keeps.  Rounds are padded to 16, 32 or a
+# multiple of 32 rows; a served steady state dispatches one or two such
+# counts (288 and 320 rows in perfbench's `uint8-saturated`) and a radix
+# program's rounds a few more.  A graph reserves its static inputs and
+# the rotation's step tensors in a memory pool of its own: at 288 rows
+# 65 MB at N 2048 and 1.0 GB at gpt2's N 32768 (measured on an H100), so
+# 8 hold at most about 8 GB beside gpt2's 2.6 GB of BSK planes on 80 GB.
+GRAPHS_PER_PACK = 8
+SEEN_PER_PACK = 64      # keys seen once, remembered for their second call
+
+
+class GraphCache:
+    """A pack's captured graphs by key, the least recently used evicted
+    past `size`; the keys seen once (at most `seen`); how many blind
+    rotations ran each way (`counts`), and how this thread's last one ran
+    (`local.how`)."""
+
+    def __init__(self, size: int = GRAPHS_PER_PACK, seen: int = SEEN_PER_PACK):
+        self.size, self.seen_size = size, seen
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.seen: collections.OrderedDict = collections.OrderedDict()
+        self.capturing: set = set()
+        self.counts = dict.fromkeys(("eager", "capture", "replay"), 0)
+        self.local = threading.local()
+        self.lock = threading.Lock()
+
+    def lookup(self, key, capture):
+        """(graph, how): the graph at `key` and "replay"; at a key seen
+        once before, `capture()`'s graph, now cached, and "capture"; else
+        (None, "eager"), and the key is remembered.  A capture runs
+        outside the lock, so other keys replay meanwhile; a call at a key
+        another thread is capturing runs eagerly, so a key is captured
+        once."""
+        with self.lock:
+            graph = self.graphs.get(key)
+            if graph is not None:
+                self.graphs.move_to_end(key)
+                how = "replay"
+            elif self.seen.pop(key, False):
+                self.capturing.add(key)
+                how = "capture"
+            else:
+                if key not in self.capturing:
+                    self.seen[key] = True
+                    if len(self.seen) > self.seen_size:
+                        self.seen.popitem(last=False)
+                how = "eager"
+            if how != "capture":
+                self.counts[how] += 1
+        if how == "capture":
+            try:
+                graph = capture()
+            except BaseException:
+                with self.lock:
+                    self.capturing.discard(key)
+                raise
+            with self.lock:
+                self.capturing.discard(key)
+                self.graphs[key] = graph
+                if len(self.graphs) > self.size:
+                    self.graphs.popitem(last=False)
+                self.counts[how] += 1
+        self.local.how = how
+        return graph, how
+
+
+class _CapturedRotation:
+    """`pbs_small_fused` at one (rows, device, stream), captured as a CUDA
+    graph: static input buffers, the graph, its output in the graph's
+    memory pool, and the tally of the launches it holds.  The loop's
+    per-step tensors come from that pool too, freed blocks reused from
+    step to step as in eager launches.
+
+    Captured on a side stream (a capture cannot run on the legacy default
+    stream) in thread-local mode, so other threads keep launching work
+    and copying to the host meanwhile.  `__call__` holds the graph's lock
+    from the copy-in to the enqueue of the copy-out, on the caller's
+    stream, and returns a fresh tensor: no caller holds memory a later
+    replay overwrites."""
+
+    def __init__(self, pack: "FusedPbsPack", small_cts: torch.Tensor,
+                 lut_polys: torch.Tensor):
+        dev = small_cts.device
+        self.small = torch.empty(small_cts.shape, dtype=small_cts.dtype, device=dev)
+        self.luts = torch.empty(lut_polys.shape, dtype=lut_polys.dtype, device=dev)
+        self.lock = threading.Lock()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(torch.cuda.Stream(dev)), _build.capturing() as launches:
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out = pbs_small_fused(self.small, self.luts, pack.bsk_planes,
+                                           pack.params)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+        self.launches = launches
+
+    def __call__(self, small_cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
+        with self.lock:
+            self.small.copy_(small_cts)
+            self.luts.copy_(lut_polys)
+            self.graph.replay()
+            out = self.out.clone()
+        _build.replayed(self.launches)
+        return out
+
 
 @dataclasses.dataclass
 class FusedPbsPack:
@@ -127,6 +248,8 @@ class FusedPbsPack:
     params: TFHEParams
     bsk_planes: torch.Tensor         # (n, 2, J, K, M) f64 planes
     ksk_limbs: torch.Tensor          # (8T, S16) uint8, S = big_n * ks_level
+    _graphs: GraphCache = dataclasses.field(
+        default_factory=GraphCache, init=False, repr=False, compare=False)
 
     @classmethod
     def build(cls, bsk_f: torch.Tensor, ksk: torch.Tensor,
@@ -150,8 +273,8 @@ class FusedPbsPack:
 
     # -- the engine entry points -------------------------------------------
     def pbs_batch(self, big_cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
-        return pbs_batch_fused(big_cts, lut_polys, self.bsk_planes, self.ksk_limbs,
-                               self.params)
+        """`pbs_batch_fused`: the keyswitch, then `pbs_from_small`."""
+        return self.pbs_from_small(self.keyswitch(big_cts), lut_polys)
 
     def keyswitch(self, big_cts: torch.Tensor) -> torch.Tensor:
         return keyswitch_fused(big_cts, self.ksk_limbs, self.params)
@@ -159,10 +282,33 @@ class FusedPbsPack:
     def blind_rotate(self, lut_glwes: torch.Tensor, ms_cts: torch.Tensor) -> torch.Tensor:
         return blind_rotate_fused(lut_glwes, ms_cts, self.bsk_planes, self.params)
 
-    def pbs_from_small(self, small_cts: torch.Tensor,
-                       lut_polys: torch.Tensor) -> torch.Tensor:
-        """PBS resumed after `keyswitch`: the KS-level-dedup half-round."""
-        return pbs_small_fused(small_cts, lut_polys, self.bsk_planes, self.params)
+    def pbs_from_small(self, small_cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
+        """The PBS resumed after `keyswitch` (the KS-level-dedup
+        half-round too): `pbs_small_fused` on this pack's BSK.  On a card
+        it runs eagerly at the first call of its (rows, device, current
+        stream), captures the graph and replays it at the second, replays
+        it after; `last_rotation()` says which."""
+        dev = small_cts.device
+        if dev.type != "cuda":
+            self._graphs.local.how = None
+            return pbs_small_fused(small_cts, lut_polys, self.bsk_planes, self.params)
+        key = (int(small_cts.shape[0]), dev.index,
+               torch.cuda.current_stream(dev).cuda_stream)
+        graph, _ = self._graphs.lookup(
+            key, lambda: _CapturedRotation(self, small_cts, lut_polys))
+        if graph is None:
+            return pbs_small_fused(small_cts, lut_polys, self.bsk_planes, self.params)
+        return graph(small_cts, lut_polys)
+
+    def last_rotation(self) -> str | None:
+        """How this thread's last `pbs_from_small` ran: "eager",
+        "capture" or "replay"; None on CPU tensors or before any."""
+        return getattr(self._graphs.local, "how", None)
+
+    def rotations(self) -> dict:
+        """Blind rotations run so far by how: {"eager", "capture", "replay"}."""
+        with self._graphs.lock:
+            return dict(self._graphs.counts)
 
     # -- bandwidth accounting -------------------------------------------------
     @property

@@ -15,7 +15,8 @@ output scale, the MAC within 1e-9 relative, and the torus output of
 the f32 MAC within 1e-2 absolute (the reference's f32 gates), and the
 keyswitch on int32 digits bit for bit;
 PBS rounds, radix integer ops, the `fhe_ml` blocks and served waves
-decrypt exactly to their oracles (a wave to its programs' eager runs);
+decrypt exactly to their oracles, and a PBS replayed from a captured
+CUDA graph equals the eager launches' bit for bit (a wave to its programs' eager runs);
 the quantize-to-radix MLP's floats stay within its `tol_fn`; the LM
 stack's reduced configs (f32) give the CPU's forward hidden states and
 decode logits within 1e-4 (summation order, carried by the
@@ -271,6 +272,151 @@ def test_fused_lut_batch_on_the_card(gen, p):
     ref = TaurusEngine.from_context(ctx, kernel_backend="reference").lut_batch_tables(
         cts, table)
     assert ctx.decrypt(ref).tolist() == ctx.decrypt(out).tolist()
+
+
+# --- the blind rotation replayed as a captured CUDA graph ------------------------
+
+PER_ROUND = ("keyswitch_mac", "fft_forward", "fft_inverse", "external_product_mac")
+
+
+def graph_round(ctx, gen, B):
+    """B fresh ciphertexts under B random tables: (cts, LUT polys, the
+    tables' values)."""
+    from repro_torch.core import glwe
+    mod = ctx.params.plaintext_modulus
+    msgs = torch.randint(0, mod, (B,), generator=gen, device="cuda")
+    tables = torch.randint(0, mod, (B, mod), generator=gen, device="cuda")
+    polys = glwe.make_lut_polys_cached(tables.cpu(), ctx.params, device="cuda")
+    return ctx.encrypt(gen, msgs), polys, tables[torch.arange(B, device="cuda"), msgs].tolist()
+
+
+def eager_pbs(pack, cts, polys):
+    """The PBS by eager launches, outside the pack's graphs."""
+    from repro_torch.kernels import fused_pbs
+    return fused_pbs.pbs_batch_fused(cts, polys, pack.bsk_planes, pack.ksk_limbs, pack.params)
+
+
+@pytest.mark.parametrize("B", [1, 16, 288])
+@pytest.mark.parametrize("p", [TEST_PARAMS, TEST_PARAMS_K2], ids=lambda p: p.name)
+def test_graph_replay_is_bit_identical_to_eager_launches(gen, p, B):
+    """A row count's first round runs eagerly, its second captures and
+    replays, later ones replay; each gives the eager launches' output bit
+    for bit, `lut_batch_small` replays the same graph, and the launch
+    counts are rounds x (1, n, n, n) across all of them."""
+    from repro_torch.obs import Telemetry
+    ctx = TFHEContext.create(gen, p)
+    tel = Telemetry(trace=True)
+    engine = TaurusEngine.from_context(ctx, telemetry=tel)
+    cts, polys, want = graph_round(ctx, gen, B)
+    eager = eager_pbs(engine.fused_pack, cts, polys)
+    reset_launch_counts()
+    outs = [engine.lut_batch(cts, polys) for _ in range(3)]
+    outs.append(engine.lut_batch_small(engine.keyswitch(cts), polys))
+    assert all(torch.equal(o, eager) for o in outs)
+    assert ctx.decrypt(outs[-1]).tolist() == want
+    assert launch_counts() == dict(zip(PER_ROUND, (4, 4 * p.n, 4 * p.n, 4 * p.n)))
+    assert engine.fused_pack.rotations() == {"eager": 1, "capture": 1, "replay": 2}
+    spans = [s for s in tel.recorder.spans() if s.name in ("lut_batch", "lut_batch_small")]
+    assert [s.args["graph"] for s in spans] == ["eager", "capture", "replay", "replay"]
+    snap = tel.snapshot()["counters"]
+    assert (snap["engine.graph_eager"], snap["engine.graph_captures"],
+            snap["engine.graph_replays"]) == (1, 1, 2)
+
+
+def test_graph_replays_leave_earlier_outputs_alone(gen):
+    """Two inputs replayed in turn give two right outputs, and a tensor
+    returned before a replay is unchanged after it."""
+    ctx = TFHEContext.create(gen, TEST_PARAMS)
+    engine = TaurusEngine.from_context(ctx)
+    x, y = graph_round(ctx, gen, 16), graph_round(ctx, gen, 16)
+    want_x, want_y = (eager_pbs(engine.fused_pack, c, q) for c, q, _ in (x, y))
+    engine.lut_batch(*x[:2])
+    engine.lut_batch(*x[:2])                            # captured
+    out_x = engine.lut_batch(*x[:2])
+    kept = out_x.clone()
+    out_y = engine.lut_batch(*y[:2])
+    assert torch.equal(out_x, kept) and torch.equal(out_x, want_x)
+    assert torch.equal(out_y, want_y) and not torch.equal(want_x, want_y)
+    assert ctx.decrypt(out_x).tolist() == x[2] and ctx.decrypt(out_y).tolist() == y[2]
+
+
+@pytest.mark.parametrize("own_stream", [False, True], ids=["one stream", "two streams"])
+def test_two_threads_replay_one_pack_at_once(gen, own_stream):
+    """Two threads run rounds of their own inputs on one pack at once, on
+    the default stream (one graph, taken in turn) or the second on a
+    stream of its own (a graph each): every output is right."""
+    import threading
+    ctx = TFHEContext.create(gen, TEST_PARAMS)
+    engine = TaurusEngine.from_context(ctx)
+    jobs = [graph_round(ctx, gen, 32) for _ in range(2)]
+    wants = [eager_pbs(engine.fused_pack, c, q) for c, q, _ in jobs]
+    torch.cuda.synchronize()
+    start = threading.Barrier(2)
+    results = [[], []]
+    errors = []
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream() if own_stream and i else torch.cuda.current_stream()
+            with torch.cuda.stream(stream):
+                start.wait(timeout=30)
+                for _ in range(6):
+                    out = engine.lut_batch(*jobs[i][:2])
+                    stream.synchronize()
+                    results[i].append(out)
+        except Exception as e:          # re-raised on the test's thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads) and not errors, errors
+    for outs, want, job in zip(results, wants, jobs):
+        assert len(outs) == 6 and all(torch.equal(o, want) for o in outs)
+        assert ctx.decrypt(outs[-1]).tolist() == job[2]
+    assert len(engine.fused_pack._graphs.graphs) == (2 if own_stream else 1)
+
+
+def test_capture_while_another_thread_copies_to_the_host(gen):
+    """A capture (thread-local mode, on a side stream) succeeds while
+    another thread keeps running torch ops on the card and copying their
+    results to the host; both threads' results are right."""
+    import threading
+    ctx = TFHEContext.create(gen, TEST_PARAMS)
+    engine = TaurusEngine.from_context(ctx)
+    cts, polys, want = graph_round(ctx, gen, 64)
+    eager = eager_pbs(engine.fused_pack, cts, polys)
+    stop = threading.Event()
+    sums, errors = [], []
+
+    def busy():
+        try:
+            x = torch.arange(1 << 16, dtype=torch.float64, device="cuda")
+            while not stop.is_set():
+                sums.append((x * 2 + 1).sum().cpu().item())
+        except Exception as e:          # re-raised on the test's thread below
+            errors.append(e)
+
+    other = threading.Thread(target=busy)
+    other.start()
+    try:
+        engine.lut_batch(cts, polys)
+        reset_launch_counts()
+        outs = [engine.lut_batch(cts, polys) for _ in range(2)]     # capture, replay
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        other.join(timeout=60)
+    assert not other.is_alive() and not errors, errors
+    assert engine.fused_pack.rotations() == {"eager": 1, "capture": 1, "replay": 1}
+    steps = 2 * TEST_PARAMS.n
+    assert launch_counts() == dict(zip(PER_ROUND, (2, steps, steps, steps)))
+    assert all(torch.equal(o, eager) for o in outs)
+    assert ctx.decrypt(outs[-1]).tolist() == want
+    n = 1 << 16
+    assert sums and set(sums) == {float(n * (n - 1) + n)}
 
 
 @pytest.fixture(scope="module")
