@@ -189,7 +189,9 @@ class TaurusEngine:
         `counted=False` (the keyswitch alone) opens the span only.  A
         blind rotation the fused pack ran on a card gives the span the
         arg `graph` and a count in `engine.graph_replays` / `_captures` /
-        `_eager`."""
+        `_eager`; a capture also counts its graph's bytes in
+        `engine.graph_bytes_captured`, and those of the graph it evicted in
+        `engine.graph_bytes_released`."""
         tel = self.telemetry
         if tel is None:
             return run()
@@ -203,6 +205,10 @@ class TaurusEngine:
             return out
         if how is not None:
             tel.counter(GRAPH_COUNTERS[how]).inc()
+        if how == "capture":
+            captured, released = self.fused_pack.last_graph_bytes()
+            tel.counter("engine.graph_bytes_captured").inc(captured)
+            tel.counter("engine.graph_bytes_released").inc(released)
         tel.counter(f"engine.lut_batches_{self.kernel_backend}").inc()
         tel.counter("engine.lut_batches").inc()
         tel.counter("engine.pbs_rows").inc(rows + (pad or 0))

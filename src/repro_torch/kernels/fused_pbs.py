@@ -134,11 +134,15 @@ _PACKS_LOCK = threading.Lock()
 
 # Captured graphs a pack keeps.  Rounds are padded to 16, 32 or a
 # multiple of 32 rows; a served steady state dispatches one or two such
-# counts (288 and 320 rows in perfbench's `uint8-saturated`) and a radix
-# program's rounds a few more.  A graph reserves its static inputs and
-# the rotation's step tensors in a memory pool of its own: at 288 rows
-# 65 MB at N 2048 and 1.0 GB at gpt2's N 32768 (measured on an H100), so
-# 8 hold at most about 8 GB beside gpt2's 2.6 GB of BSK planes on 80 GB.
+# counts (288 and 320 rows in perfbench's `uint8-saturated`, 192 in
+# `dtree9-closed`) and a radix program's rounds a few more.  A graph
+# reserves its static inputs and the rotation's step tensors in a memory
+# pool of its own (measured on an H100): at 288 rows 65 MB at N 2048 and
+# 1.0 GB at gpt2's N 32768; at the decision tree's N 65536, level 3,
+# about 13 MB a row (0.20 GB at 16 rows, 0.63 GB at 48, 2.4 GB at 192).
+# So 8 graphs of 192 rows hold about 20 GB beside that set's 10.7 GB of
+# resident keys on 80 GB, and the bound stays a count; at N 65536 eight
+# graphs of more than about 400 rows would not fit.
 GRAPHS_PER_PACK = 8
 SEEN_PER_PACK = 64      # keys seen once, remembered for their second call
 
@@ -147,7 +151,8 @@ class GraphCache:
     """A pack's captured graphs by key, the least recently used evicted
     past `size`; the keys seen once (at most `seen`); how many blind
     rotations ran each way (`counts`), and how this thread's last one ran
-    (`local.how`)."""
+    (`local.how`), with the bytes its capture took (`local.captured`) and
+    its evictions gave back (`local.released`), each graph's `bytes`."""
 
     def __init__(self, size: int = GRAPHS_PER_PACK, seen: int = SEEN_PER_PACK):
         self.size, self.seen_size = size, seen
@@ -181,6 +186,7 @@ class GraphCache:
                 how = "eager"
             if how != "capture":
                 self.counts[how] += 1
+        captured = released = 0
         if how == "capture":
             try:
                 graph = capture()
@@ -188,14 +194,23 @@ class GraphCache:
                 with self.lock:
                     self.capturing.discard(key)
                 raise
+            captured = getattr(graph, "bytes", 0)
             with self.lock:
                 self.capturing.discard(key)
                 self.graphs[key] = graph
                 if len(self.graphs) > self.size:
-                    self.graphs.popitem(last=False)
+                    released = getattr(self.graphs.popitem(last=False)[1], "bytes", 0)
                 self.counts[how] += 1
         self.local.how = how
+        self.local.captured, self.local.released = captured, released
         return graph, how
+
+
+def pool_bytes(pool, device: torch.device) -> int:
+    """The bytes of the caching allocator's segments in memory pool
+    `pool` (a `CUDAGraph.pool()`) on `device`."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["segment_pool_id"] == pool and seg["device"] == device.index)
 
 
 class _CapturedRotation:
@@ -210,7 +225,8 @@ class _CapturedRotation:
     and copying to the host meanwhile.  `__call__` holds the graph's lock
     from the copy-in to the enqueue of the copy-out, on the caller's
     stream, and returns a fresh tensor: no caller holds memory a later
-    replay overwrites."""
+    replay overwrites.  `bytes`: its static inputs and the segments of
+    its memory pool, as the capture left them."""
 
     def __init__(self, pack: "FusedPbsPack", small_cts: torch.Tensor,
                  lut_polys: torch.Tensor):
@@ -230,6 +246,8 @@ class _CapturedRotation:
                 raise
             self.graph.capture_end()
         self.launches = launches
+        self.bytes = (self.small.nbytes + self.luts.nbytes
+                      + pool_bytes(self.graph.pool(), dev))
 
     def __call__(self, small_cts: torch.Tensor, lut_polys: torch.Tensor) -> torch.Tensor:
         with self.lock:
@@ -291,6 +309,7 @@ class FusedPbsPack:
         dev = small_cts.device
         if dev.type != "cuda":
             self._graphs.local.how = None
+            self._graphs.local.captured = self._graphs.local.released = 0
             return pbs_small_fused(small_cts, lut_polys, self.bsk_planes, self.params)
         key = (int(small_cts.shape[0]), dev.index,
                torch.cuda.current_stream(dev).cuda_stream)
@@ -304,6 +323,13 @@ class FusedPbsPack:
         """How this thread's last `pbs_from_small` ran: "eager",
         "capture" or "replay"; None on CPU tensors or before any."""
         return getattr(self._graphs.local, "how", None)
+
+    def last_graph_bytes(self) -> tuple[int, int]:
+        """(captured, released): the bytes of the graph this thread's last
+        `pbs_from_small` captured, and of the graph its capture evicted;
+        0 where it captured or evicted none."""
+        local = self._graphs.local
+        return getattr(local, "captured", 0), getattr(local, "released", 0)
 
     def rotations(self) -> dict:
         """Blind rotations run so far by how: {"eager", "capture", "replay"}."""

@@ -955,3 +955,78 @@ def test_every_reduced_config_through_dtensor_at_world_size_one(gen, tmp_path):
             assert (run.logits.float().cpu() - plain[arch][2]).abs().max().item() <= 1e-5, arch
     finally:
         dist.destroy_process_group()
+
+
+# --- Taurus's 9-bit decision tree at its N = 65536, level-3 set ---------------------
+
+@pytest.fixture(scope="module")
+def dtree_ctx():
+    """Keys at `PAPER_PARAMS["decision_tree"]` (n 1070, N 65536, PBS 2^11 x
+    3): about 21 GB of evaluation keys with the fused pack's operands, so
+    these tests come last in the file and free them at its end."""
+    import gc
+    from repro_torch.core.params import PAPER_PARAMS
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    box = [TFHEContext.create(gen, PAPER_PARAMS["decision_tree"]), gen]
+    yield box
+    box.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def test_served_tree_at_the_decision_tree_set(dtree_ctx):
+    """One 91-node, depth-18 tree request at the paper's 9-bit set served
+    on the fused engine (2 rounds, the CUDA-graph replay's path) decrypts
+    to the plain tree walk, as the same ciphertexts do through the plain
+    `kernel_backend="reference"` engine on the same keys."""
+    from repro_torch.fhe_ml import tree_reference, trees
+    ctx, gen = dtree_ctx
+    t = trees.random_tree(2025)
+    g, meta = trees.lower_decision_tree(t, ctx.params.width)
+    x = torch.randint(0, 256, (2, 16), generator=gen, device="cuda").cpu().numpy()
+    onehot, cls = tree_reference.predict(t, x)
+    want = [[onehot[i].tolist(), [cls[i].item()]] for i in range(2)]
+    with Session(ctx, backend="serve", kernel_backend="fused", max_inflight=2) as sess:
+        prog = sess.compile(g, meta["in_specs"], meta["out_specs"])
+        encs = [sess.encrypt_inputs(gen, [row], prog) for row in x]
+        handles = [sess.submit(prog, enc, client_id=f"c{i}") for i, enc in enumerate(encs)]
+        got = [plain(sess.decrypt_outputs(prog, h.outputs())) for h in handles]
+        c = sess.metrics()["counters"]
+    ref_sess = Session(ctx, backend="local", kernel_backend="reference")
+    ref = [plain(ref_sess.decrypt_outputs(prog, ref_sess.run(prog, encs[0])))]
+    assert got == want
+    assert ref == want[:1]
+    assert c["sched.logical_luts"] == 2 * meta["pbs"]
+
+
+def test_graph_cache_byte_counters_at_two_row_counts(dtree_ctx, monkeypatch):
+    """At the decision-tree set, a capture at 16 and at 48 rows in a cache
+    of one graph: `engine.graph_bytes_captured` counts each graph's
+    bytes, at least its static inputs, output and one step's digit
+    planes, the larger for more rows; the second capture evicts the
+    first, whose bytes `engine.graph_bytes_released` counts."""
+    from repro_torch.kernels import fused_pbs
+    from repro_torch.obs import Telemetry
+    ctx, gen = dtree_ctx
+    p = ctx.params
+    tel = Telemetry(trace=True)
+    engine = TaurusEngine.from_context(ctx, telemetry=tel)
+    pack = engine.fused_pack
+    monkeypatch.setattr(pack, "_graphs", fused_pbs.GraphCache(size=1))
+    sizes = {}
+    for B in (16, 48):
+        cts, polys, want = graph_round(ctx, gen, B)
+        outs = [engine.lut_batch(cts, polys) for _ in range(3)]
+        assert all(ctx.decrypt(o).tolist() == want for o in outs)
+        (graph,) = pack._graphs.graphs.values()
+        sizes[B] = graph.bytes
+        J, M = (p.k + 1) * p.pbs_level, p.N // 2
+        assert sizes[B] >= 8 * B * ((p.n + 1) + p.N + (p.big_n + 1) + 2 * J * M)
+    print(f"graph bytes at {p.name}: {sizes}")
+    assert sizes[48] > sizes[16]
+    assert len([s for s in tel.recorder.spans() if s.args.get("graph") == "capture"]) == 2
+    snap = tel.snapshot()["counters"]
+    assert snap["engine.graph_bytes_captured"] == sizes[16] + sizes[48]
+    assert snap["engine.graph_bytes_released"] == sizes[16]

@@ -16,9 +16,14 @@ decrypts; the float outputs of the quantize-to-radix MLP are held to
 `meta["tol_fn"]` as in tests/test_fhe_ml.py.  The radix GPT-2 block runs
 encrypted in tests/test_torch_fhe_ml_gpt2.py.
 """
+import ast
 import dataclasses
+import os
+import subprocess
+import sys
 import types
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,6 +51,7 @@ from torch_stand_in import StandInEngine  # noqa: E402
 
 BITS = 8
 MOD = 1 << BITS
+SRC = str(Path(fhe_ml.__file__).resolve().parents[2])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -74,11 +80,23 @@ def to_port(enc) -> list:
 
 # --- quantizers, bit for bit ------------------------------------------------------
 
+# the port's own submodules: the package binds each once it is imported
+# (by its tests in the same process), and exports none of them
+PORT_ONLY = {"trees", "tree_reference"}
+
+
 def test_package_exports_match():
-    """The reference's names."""
+    """The reference's names, on a fresh import of the port's package
+    and here, where other tests may have imported its own submodules."""
     def names(m):
         return {n for n in dir(m) if not n.startswith("_")}
-    assert names(fhe_ml) == names(jfhe_ml)
+    code = ("import repro_torch.fhe_ml as m\n"
+            "print(sorted(n for n in dir(m) if not n.startswith('_')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=SRC))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert set(ast.literal_eval(out.stdout.strip().splitlines()[-1])) == names(jfhe_ml)
+    assert names(fhe_ml) - PORT_ONLY == names(jfhe_ml)
     assert executor.EagerBackend is api.EagerBackend
     assert executor.eval_linear_ct_op is api.eval_linear_ct_op
 

@@ -179,6 +179,30 @@ def test_a_failed_capture_counts_nothing(monkeypatch, counts):
     assert getattr(_build._CAPTURE, "tally", None) is None
 
 
+class Sized:
+    """A stand-in graph holding `bytes`."""
+
+    def __init__(self, n):
+        self.bytes = n
+
+
+@pytest.mark.parametrize("size", [1, 2])
+def test_a_capture_reports_its_bytes_and_an_eviction_gives_them_back(size):
+    """Each capture hands this thread its graph's bytes (`local.captured`),
+    and the capture that evicts the least recently used graph also that
+    graph's (`local.released`); other calls report 0 for both."""
+    cache = fused_pbs.GraphCache(size=size)
+    seen = []
+    for key, n in (("a", 100), ("b", 20), ("c", 3)):
+        for how in ("eager", "capture", "replay"):
+            assert cache.lookup(key, lambda: Sized(n))[1] == how
+            seen.append((cache.local.captured, cache.local.released))
+    evicted = [0, 0] if size == 2 else [100, 20]
+    assert seen == [(0, 0), (100, 0), (0, 0),
+                    (0, 0), (20, evicted[0]), (0, 0),
+                    (0, 0), (3, 100 if size == 2 else evicted[1]), (0, 0)]
+
+
 # --- what a graph captures, and the CPU path -------------------------------------
 
 @pytest.mark.parametrize("entry", ["lut_batch", "lut_batch_small"])
@@ -209,6 +233,32 @@ def test_the_engine_reads_how_the_pack_ran(cpu_ctx, monkeypatch, entry):
     snap = tel.snapshot()["counters"]
     assert (snap["engine.graph_eager"], snap["engine.graph_captures"],
             snap["engine.graph_replays"]) == (1, 1, 2)
+
+
+def test_the_engine_counts_the_bytes_of_captures_and_evictions(cpu_ctx, monkeypatch):
+    """The engine adds a capture's graph bytes to
+    `engine.graph_bytes_captured` and the bytes of the graph it evicted
+    to `engine.graph_bytes_released`; eager and replayed rounds add
+    nothing."""
+    tel = Telemetry(trace=True)
+    engine = TaurusEngine.from_context(cpu_ctx, device="cpu", telemetry=tel)
+    cts, polys, _ = inputs(cpu_ctx, 2, seed=3)
+    runs = iter([("eager", 0, 0), ("capture", 700, 0), ("replay", 0, 0), ("capture", 50, 700)])
+    real = fused_pbs.FusedPbsPack.pbs_from_small
+
+    def ran(pack, small, lut_polys):
+        out = real(pack, small, lut_polys)
+        local = pack._graphs.local
+        local.how, local.captured, local.released = next(runs)
+        return out
+    monkeypatch.setattr(fused_pbs.FusedPbsPack, "pbs_from_small", ran)
+    totals = []
+    for _ in range(4):
+        engine.lut_batch(cts, polys)
+        snap = tel.snapshot()["counters"]
+        totals.append((snap.get("engine.graph_bytes_captured", 0),
+                       snap.get("engine.graph_bytes_released", 0)))
+    assert totals == [(0, 0), (700, 0), (700, 0), (750, 700)]
 
 
 def test_a_capture_holds_up_no_other_key():
