@@ -161,7 +161,21 @@ class TaurusEngine:
             from repro_torch.kernels.fused_pbs import FusedPbsPack
             pack = self._fused_pack = FusedPbsPack.shared(
                 self.bsk_f, self.ksk, self.params)
+            self._gauge_residency()
         return pack
+
+    def _gauge_residency(self) -> None:
+        """Set the gauge `engine.fft_clusters_resident`: the clusters (rows)
+        of the CMux step's FFT launches that fit on the card at once at
+        this engine's N, the fewer of the two entry points'
+        (`fourstep_fft.residency`).  On a card, with telemetry only."""
+        tel = self.telemetry
+        if tel is None or self.device.type != "cuda":
+            return
+        from repro_torch.kernels import fourstep_fft
+        res = fourstep_fft.residency(self.params.N)
+        tel.gauge("engine.fft_clusters_resident").set(
+            min(r["clusters"] for r in res.values()))
 
     # -- linear ops (LPU; no bootstrapping, Fig. 2b step 4) -----------------
     def add(self, a, b):

@@ -95,7 +95,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for p in (PAPER_PARAMS["gpt2"], PAPER_PARAMS["xgboost"]):
+    for p in (PAPER_PARAMS["gpt2"], PAPER_PARAMS["xgboost"], PAPER_PARAMS["decision_tree"]):
         e = step_errors(p, 12, gen)
         print(f"{p.name} (PBS gadget 2^{p.pbs_base_log} x {p.pbs_level}), one CMux step "
               f"at 12 rows: coefficient error rms / max, kernels 2^"

@@ -29,7 +29,8 @@
 // shared memory a block may use, and the TPU's 128 x 128 DFT matrix would
 // take as much again.  The four-step split M = R * C (R = C = 128 at
 // M = 16,384; R = 2^ceil(lg M / 2), as factor_m) runs in ONE launch on a
-// thread-block cluster of P blocks per row (P = 8 for M >= 4096, else 1):
+// thread-block cluster of P blocks per row (P = 8 for 4096 <= M <= 16,384,
+// 16 at M = 32,768, else 1):
 //
 //   1. each block loads its C/P columns of the row (R * C/P values), with
 //      the mode's prologue (fold, twist, rotate, decompose, or conjugate
@@ -41,6 +42,15 @@
 //      and arrives at a second cluster barrier that it waits on only
 //      before it exits;
 //   4. C-point FFTs along its rows, and the mode's epilogue as it stores.
+//
+// At M = 32,768 a block of a cluster of 8 would hold 4,096 values in three
+// buffers (214 KB), one block an SM, so every barrier stalled the SM.  There
+// the cluster is 16 blocks of 2,048 values (the per-block shape of M =
+// 16,384) and the rows are gathered into the column FFTs' free buffer; the
+// row FFTs then write into the column result once every peer has read it,
+// so the block waits on the second cluster barrier before its row FFTs.
+// Two buffers (84 KB) let two blocks share an SM.  The same sums run in the
+// same order, so the planes are those of the cluster of 8 bit for bit.
 //
 // No intermediate goes to device memory.  The sub-FFTs are Stockham
 // autosort passes of radix 16 (a first pass of radix 2, 4 or 8 where lg L
@@ -84,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -107,7 +119,10 @@ template <int LOG_M, class V>
 struct Cfg {
   static constexpr int M = 1 << LOG_M, N = 2 * M;
   static constexpr int R = 1 << ((LOG_M + 1) / 2), C = 1 << (LOG_M / 2);
-  static constexpr int P = LOG_M >= 12 ? 8 : 1;  // blocks per cluster (row)
+  static constexpr int P = LOG_M >= 15 ? 16 : (LOG_M >= 12 ? 8 : 1);  // blocks per row
+  // The gathered rows go into the column FFTs' free buffer, and the row
+  // FFTs' second buffer is the column result once the peers have read it.
+  static constexpr bool SHARE = LOG_M >= 15;
   static constexpr int RB = R / P, CB = C / P;   // rows / columns per block
   static constexpr int CS = CB + 1;              // column-buffer row stride
   static constexpr int E = M / P;                // values per block
@@ -115,7 +130,7 @@ struct Cfg {
   static constexpr int EPT = (E + T - 1) / T;    // values per thread
   static constexpr int GS = RB + 1;              // row-buffer row stride
   static constexpr int BUF = R * CS;             // >= C * GS, as R >= C
-  static constexpr int GBUF = C * GS;
+  static constexpr int GBUF = SHARE ? 0 : C * GS;
   static constexpr int TH = 4 * M < 256 ? 4 * M : 256;
   static constexpr int LO = 4 * M / TH;
   static constexpr size_t SMEM = (2 * BUF + GBUF + TH + LO) * sizeof(V);
@@ -349,8 +364,7 @@ fft_kernel(Args a) {
   V* smem = reinterpret_cast<V*>(smem_raw);
   V* buf0 = smem;
   V* buf1 = smem + CF::BUF;
-  V* G = smem + 2 * CF::BUF;     // the gathered rows
-  V* hi = G + CF::GBUF;
+  V* hi = smem + 2 * CF::BUF + CF::GBUF;
   V* lo = hi + CF::TH;
   cg::cluster_group cluster = cg::this_cluster();
   const int p = blockIdx.x;        // rank in the cluster: gridDim.x == P
@@ -435,13 +449,15 @@ fft_kernel(Args a) {
   // 4. R-point FFTs down the columns, the last pass times W_M^(m1 j2).
   V* F = fft_passes<CF, R, CB, CS, true>(buf0, buf1, hi, lo, p * CB);
   V* X = F == buf0 ? buf1 : buf0;
+  V* G = CF::SHARE ? X : smem + 2 * CF::BUF;   // the gathered rows
+  V* Y = CF::SHARE ? F : X;                    // the row FFTs' second buffer
   cluster.sync();
 
   // 5. Gather rows m1 = p * RB + rr from the peers: peer q holds columns
   // j2 = q * CB + c.  Consecutive threads read consecutive columns, a run
   // of CB values in the peer; all remote loads go first, so each thread
-  // has EPT of them in flight.  F is left alone from here on, so the
-  // peers' reads of it need no barrier until this block exits.
+  // has EPT of them in flight.  Without SHARE, F is left alone from here
+  // on, so the peers' reads of it need no barrier until this block exits.
   V g[EPT];
 #pragma unroll
   for (int i = 0; i < EPT; ++i) {
@@ -476,8 +492,10 @@ fft_kernel(Args a) {
    }
   }
 
-  // 6. C-point FFTs along the rows, in G and X; X[m1 + R * m2] at m2 * GS + r.
-  const V* H = fft_passes<CF, CF::C, RB, GS, false>(G, X, hi, lo, 0);
+  if constexpr (CF::SHARE) cluster_wait();   // the peers are done reading F
+
+  // 6. C-point FFTs along the rows, in G and Y; X[m1 + R * m2] at m2 * GS + r.
+  const V* H = fft_passes<CF, CF::C, RB, GS, false>(G, Y, hi, lo, 0);
 
   // 7. Epilogue.
 #pragma unroll
@@ -510,54 +528,96 @@ fft_kernel(Args a) {
       }
     }
   }
-  cluster_wait();   // the peers are done reading this block's F
+  if constexpr (!CF::SHARE) cluster_wait();   // the peers are done reading this block's F
 }
 
+// The kernel's attributes, set once: its shared memory, and clusters of
+// more than 8 blocks (not portable; an H100 runs 16).
 template <int LOG_M, int MODE, class V>
-cudaError_t launch_one(const Args& a, int rows, cudaStream_t st) {
+cudaError_t prepare() {
   using CF = Cfg<LOG_M, V>;
   static bool ready = false;
   if (!ready) {
     cudaError_t e = cudaFuncSetAttribute(fft_kernel<LOG_M, MODE, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)CF::SMEM);
+    if (e == cudaSuccess && CF::P > 8)
+      e = cudaFuncSetAttribute(fft_kernel<LOG_M, MODE, V>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     ready = true;
   }
+  return cudaSuccess;
+}
+
+// One cluster of P blocks per row, rows on grid y.
+template <int LOG_M, class V>
+cudaLaunchConfig_t launch_config(int rows, cudaStream_t st, cudaLaunchAttribute* attr) {
+  using CF = Cfg<LOG_M, V>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CF::P, rows, 1);
   cfg.blockDim = dim3(CF::T, 1, 1);
   cfg.dynamicSmemBytes = CF::SMEM;
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CF::P;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int LOG_M, int MODE, class V>
+cudaError_t launch_one(const Args& a, int rows, cudaStream_t st) {
+  cudaError_t e = prepare<LOG_M, MODE, V>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config<LOG_M, V>(rows, st, attr);
   return cudaLaunchKernelEx(&cfg, fft_kernel<LOG_M, MODE, V>, a);
 }
 
-// N a power of two in [8, 65536]; rows = B * a.J, at most 65,535 (they go on
-// grid y): the Python wrappers cut a larger batch into slices (`row_slices`).
-template <int MODE, class V = double2>
-int dispatch(int N, int rows, const Args& a, void* stream) {
+// Clusters of the kernel that fit on the current device at once, and its
+// blocks per SM.
+template <int LOG_M, int MODE, class V>
+cudaError_t residency_one(int* clusters, int* blocks_per_sm) {
+  using CF = Cfg<LOG_M, V>;
+  cudaError_t e = prepare<LOG_M, MODE, V>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config<LOG_M, V>(1, nullptr, attr);
+  e = cudaOccupancyMaxActiveClusters(clusters, fft_kernel<LOG_M, MODE, V>, &cfg);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fft_kernel<LOG_M, MODE, V>, CF::T, CF::SMEM);
+}
+
+// fn(std::integral_constant<int, lg M>()) for N a power of two in [8, 65536].
+template <class Fn>
+int with_log_m(int N, Fn fn) {
   int log_m = 0;
   while ((2 << log_m) < N) ++log_m;
-  if ((2 << log_m) != N || log_m < 2 || log_m > 15 || rows < 0 || rows > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  auto st = static_cast<cudaStream_t>(stream);
+  if ((2 << log_m) != N || log_m < 2 || log_m > 15) return (int)cudaErrorInvalidValue;
   switch (log_m) {
 #define FFT_CASE(L) \
-  case L: return (int)launch_one<L, MODE, V>(a, rows, st);
+  case L: return (int)fn(std::integral_constant<int, L>());
     FFT_CASE(2) FFT_CASE(3) FFT_CASE(4) FFT_CASE(5) FFT_CASE(6) FFT_CASE(7)
     FFT_CASE(8) FFT_CASE(9) FFT_CASE(10) FFT_CASE(11) FFT_CASE(12) FFT_CASE(13)
     FFT_CASE(14) FFT_CASE(15)
 #undef FFT_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// rows = B * a.J, at most 65,535 (they go on grid y): the Python wrappers
+// cut a larger batch into slices (`row_slices`).
+template <int MODE, class V = double2>
+int dispatch(int N, int rows, const Args& a, void* stream) {
+  if (rows < 0 || rows > 65535) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  return with_log_m(N, [&](auto lm) {
+    return rows == 0 ? cudaSuccess : launch_one<decltype(lm)::value, MODE, V>(a, rows, st);
+  });
 }
 
 }  // namespace
@@ -604,6 +664,18 @@ int fft_inverse_torus_launch(const void* planes, const void* acc, void* out, int
   if (K < 1) return (int)cudaErrorInvalidValue;
   return dispatch<kInvTorus>(
       N, B * K, Args{planes, static_cast<const int64_t*>(acc), out, K, 1, 0}, stream);
+}
+
+// The residency of a CMux step's FFT at N on the current device, `mode` 1
+// (forward digits) or 3 (inverse torus): the clusters (rows) that fit at
+// once, and the blocks per SM.
+int fft_residency(int N, int mode, int* clusters, int* blocks_per_sm) {
+  return with_log_m(N, [&](auto lm) {
+    constexpr int L = decltype(lm)::value;
+    if (mode == kFwdDigits) return residency_one<L, kFwdDigits, double2>(clusters, blocks_per_sm);
+    if (mode == kInvTorus) return residency_one<L, kInvTorus, double2>(clusters, blocks_per_sm);
+    return cudaErrorInvalidValue;
+  });
 }
 
 const char* error_string(int code) {

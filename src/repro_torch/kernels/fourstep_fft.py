@@ -12,16 +12,17 @@ glue folded into it.
     fft_inverse_torus:   the MAC's (B, 2, K, M) output -> int64 (B, K, N)
                          on the torus [+ acc]
 
-Replaces the Pallas TPU kernels `repro/kernels/fourstep_fft.py::fft_forward`
-and `::fft_inverse` with `csrc/fft.cu`.  All four entry points run one
-kernel launch each: a thread-block cluster per row (8 blocks for
-M >= 4096) splits M = R * C as `factor_m` does, does the R-point column
-FFTs in shared memory, exchanges through distributed shared memory and
-does the C-point row FFTs, with radix-16 Stockham passes in registers, so
-no intermediate touches device memory.  The digit and torus entry points
+Replaces the Pallas TPU kernels
+`repro/kernels/fourstep_fft.py::fft_forward` and `::fft_inverse` with
+`csrc/fft.cu`.  All four entry points run one kernel launch each: a
+thread-block cluster per row (8 blocks for M >= 4096, 16 at M = 32,768)
+splits M = R * C as `factor_m` does, does the R-point column FFTs in
+shared memory, exchanges through distributed shared memory and does the
+C-point row FFTs, with radix-16 Stockham passes in registers, so no
+intermediate touches device memory.  The digit and torus entry points
 fold a blind-rotation step's rotate, subtract, decompose, cast,
-`float_to_torus` and accumulator add into the same launch: a CMux step is
-forward, MAC, inverse.  Their launches count under `fft_forward` and
+`float_to_torus` and accumulator add into the same launch: a CMux step
+is forward, MAC, inverse.  Their launches count under `fft_forward` and
 `fft_inverse`.  A launch puts its rows on grid y, at most 65,535 of
 them, so a larger call runs one launch per slice of the batch
 (`row_slices`), each counted; a call that fits takes one launch on the
@@ -39,6 +40,8 @@ launch the kernel for CUDA tensors and run the plain versions (composed of
 `torch.fft` and the core ops) only for CPU tensors.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -120,6 +123,26 @@ def fft_inverse_torus_plain(planes: torch.Tensor,
 
 
 # --- kernel wrappers -----------------------------------------------------------
+
+def residency(N: int) -> dict:
+    """{entry point: {"clusters": .., "blocks_per_sm": ..}} of the CMux
+    step's two launches at N on the current card: the clusters (rows) that
+    fit on it at once (`cudaOccupancyMaxActiveClusters`) and the blocks an
+    SM holds.  Needs CUDA."""
+    _check_n("residency", N)
+    _build.require("residency", torch.cuda.is_available(), "needs a CUDA device")
+    fn = _build.build_all()["fft"].fft_residency
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for name, mode in (("fft_forward_digits", 1), ("fft_inverse_torus", 3)):
+        clusters, blocks = ctypes.c_int(), ctypes.c_int()
+        rc = fn(N, mode, ctypes.byref(clusters), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"residency: CUDA error {rc} for {name} at N = {N}")
+        out[name] = {"clusters": clusters.value, "blocks_per_sm": blocks.value}
+    return out
+
 
 def _check(name: str, t: torch.Tensor, dims: int, dtype: torch.dtype) -> None:
     _build.require(name, t.device.type == "cuda", f"needs a CUDA tensor, got {t.device}")

@@ -4,7 +4,8 @@ eagerly against the same round replayed from the pack's captured CUDA
 graph (`FusedPbsPack.pbs_from_small`), on the same inputs: the host's
 enqueue and the device's time per round (CUDA events), each kernel's
 mean device time per launch (torch.profiler), what a capture costs and
-holds, and whether the outputs are bit-identical.  A third mode,
+holds, whether the outputs are bit-identical, and the residency of the
+FFT launches at the set's N (`fourstep_fft.residency`).  A third mode,
 "replay_spaced", replays a graph captured with a spin kernel of
 `--spin` cycles after each launch, so that each kernel starts on an
 idle card as eager launches do.  Prints one JSON line beside the
@@ -56,7 +57,7 @@ def main() -> int:
     from repro_torch.core import glwe
     from repro_torch.core.params import PAPER_PARAMS, TFHEParams
     from repro_torch.core.pbs import TFHEContext
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, fourstep_fft
     from repro_torch.kernels.fused_pbs import FusedPbsPack, pbs_small_fused
 
     ap = argparse.ArgumentParser()
@@ -150,6 +151,7 @@ def main() -> int:
            "bit_identical": identical, "decrypt_right": right,
            "capture_call_ms": capture_ms, "graph_allocated_mb": graph_mb,
            "graph_reserved_mb": pool_mb,
+           "fft_residency": fourstep_fft.residency(p.N),
            "host_enqueue_ms": {k: summary([h for h, _ in v]) for k, v in times.items()},
            "device_ms": {k: summary([d for _, d in v]) for k, v in times.items()},
            "kernel_us": {k: {n: {"launches": c, "mean_us": t} for n, (c, t) in v.items()}

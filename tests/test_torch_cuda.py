@@ -161,6 +161,62 @@ def test_cmux_step_entry_points(gen, N, K, level):
         <= 1e-12 * scale + 1
 
 
+# --- N = 65536 at the decision tree's gadget: the cluster of 16, two blocks an SM --
+
+TREE_ROWS = 200        # 1,200 digit rows: more than one wave of resident clusters
+# A CMux step's coefficient error (rms, torus units) that the cluster of 8
+# read at the decision tree's set, 12 rows of the `gen` fixture's seed, on an
+# H100 (`cmux_accuracy.step_errors`); the cluster of 16 must not read more.
+TREE_STEP_RMS_CLUSTER_OF_8 = 6.480667678175201e-11
+
+
+def tree_set():
+    from repro_torch.core.params import PAPER_PARAMS
+    return PAPER_PARAMS["decision_tree"]
+
+
+@pytest.mark.parametrize("with_shifts", [True, False])
+def test_forward_digits_at_the_tree_set(gen, with_shifts):
+    p = tree_set()
+    K, N = p.k + 1, p.N
+    acc = torus.random_torus(gen, (TREE_ROWS, K, N), device="cuda")
+    shifts = (torch.randint(0, 2 * N, (TREE_ROWS,), generator=gen, device="cuda")
+              if with_shifts else None)
+    got = fourstep_fft.fft_forward_digits(acc, shifts, p.pbs_base_log, p.pbs_level)
+    want = fourstep_fft.fft_forward_digits_plain(acc, shifts, p.pbs_base_log, p.pbs_level)
+    assert got.shape == (TREE_ROWS, 2, K * p.pbs_level, N // 2)
+    assert close(got, want, 1e-12)
+
+
+@pytest.mark.parametrize("with_acc", [True, False])
+def test_inverse_torus_at_the_tree_set(gen, with_acc):
+    p = tree_set()
+    K, N = p.k + 1, p.N
+    planes = torch.randn((TREE_ROWS, 2, K, N // 2), generator=gen, device="cuda",
+                         dtype=torch.float64) * 2.0 ** 60
+    acc = torus.random_torus(gen, (TREE_ROWS, K, N), device="cuda") if with_acc else None
+    got = fourstep_fft.fft_inverse_torus(planes, acc)
+    want = fourstep_fft.fft_inverse_torus_plain(planes, acc)
+    scale = fourstep_fft.fft_inverse_plain(
+        planes.transpose(1, 2).reshape(TREE_ROWS * K, 2, N // 2)).abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-12 * scale + 1
+
+
+def test_fft_residency_at_the_tree_set(gen):
+    """Both CMux-step FFTs at N = 65536 hold two blocks on an SM."""
+    res = fourstep_fft.residency(65536)
+    print(f"residency at N = 65536: {res}")
+    for name in ("fft_forward_digits", "fft_inverse_torus"):
+        assert res[name]["blocks_per_sm"] >= 2 and res[name]["clusters"] >= 1, res
+
+
+def test_cmux_step_error_at_the_tree_set(gen):
+    from repro_torch.kernels.cmux_accuracy import step_errors
+    e = step_errors(tree_set(), 12, gen)
+    print(f"CMux step error at the tree set: {e}")
+    assert e["kernels"]["rms"] <= TREE_STEP_RMS_CLUSTER_OF_8
+
+
 @pytest.mark.parametrize("v", [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 2.0 ** 32 + 0.5,
                                -(2.0 ** 33) - 0.5, 2.0 ** 52 + 1, 2.0 ** 63,
                                -(2.0 ** 63), 2.0 ** 64 + 2.0 ** 40, 2.0 ** 94,
@@ -999,6 +1055,19 @@ def test_served_tree_at_the_decision_tree_set(dtree_ctx):
     assert got == want
     assert ref == want[:1]
     assert c["sched.logical_luts"] == 2 * meta["pbs"]
+
+
+def test_engine_gauges_fft_residency_at_the_decision_tree_set(dtree_ctx):
+    """Building its pack, an engine with telemetry sets
+    `engine.fft_clusters_resident` to the clusters of its N's FFT
+    launches that fit at once."""
+    from repro_torch.obs import Telemetry
+    ctx, _ = dtree_ctx
+    tel = Telemetry()
+    TaurusEngine.from_context(ctx, telemetry=tel).fused_pack
+    res = fourstep_fft.residency(ctx.params.N)
+    got = tel.snapshot()["gauges"]["engine.fft_clusters_resident"]
+    assert got == min(r["clusters"] for r in res.values()) >= 1
 
 
 def test_graph_cache_byte_counters_at_two_row_counts(dtree_ctx, monkeypatch):

@@ -10,6 +10,10 @@ JAX package: the digit spectra with `decompose` plus the Pallas
 scale, the torus rounding with `torus.float_to_torus` bit for bit.
 `tests/test_torch_cuda.py` holds the kernels to these plain versions.
 """
+import ast
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -149,6 +153,68 @@ def test_entry_points_refuse_meta_tensors():
     planes = torch.empty((2, 2, 2, 32), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="fft_inverse_torus"):
         fourstep_fft.fft_inverse_torus(planes, None)
+
+
+# --- what the benchmark's kernel readers take from the FFT launches ------------
+
+FFT_CU = Path(fourstep_fft.__file__).with_name("csrc") / "fft.cu"
+KERNELS_READER = Path(__file__).resolve().parents[1] / "perfbench" / "metrics" / "kernels.py"
+
+
+def reader_pattern():
+    """The `FFT` pattern of `perfbench/metrics/kernels.py`, read from its
+    source (the module imports the benchmark's package)."""
+    for node in ast.parse(KERNELS_READER.read_text()).body:
+        if isinstance(node, ast.Assign) and [getattr(t, "id", None)
+                                             for t in node.targets] == ["FFT"]:
+            return re.compile(node.value.args[0].value)
+    raise AssertionError("no FFT pattern in perfbench/metrics/kernels.py")
+
+
+def test_fft_kernel_keeps_its_template_signature():
+    """The profiler names the kernel by its template arguments, which the
+    readers parse: lg M, the mode, the complex type."""
+    assert re.search(r"template <int LOG_M, int MODE, class V>\n__global__ void[^\n]*\n"
+                     r"fft_kernel\(Args a\)", FFT_CU.read_text())
+
+
+@pytest.mark.parametrize("mode", [1, 3])
+def test_reader_pattern_names_the_n_65536_kernels(mode):
+    name = (f"void (anonymous namespace)::fft_kernel<15, {mode}, double2>"
+            f"((anonymous namespace)::Args)")
+    m = reader_pattern().search(name)
+    assert m is not None and m.groups() == ("15", str(mode))
+
+
+def test_launches_put_their_rows_on_grid_y(monkeypatch):
+    """The readers take a launch's rows from its grid y: B * K * level for
+    the forward digits, B * K for the inverse torus, one cluster of
+    blocks per row along x.  The wrappers pass B, K and level through."""
+    text = FFT_CU.read_text()
+    assert "cfg.gridDim = dim3(CF::P, rows, 1);" in text
+    assert re.search(r"return dispatch<kFwdDigits>\(\s*N, B \* K \* level,", text)
+    assert re.search(r"return dispatch<kInvTorus>\(\s*N, B \* K,", text)
+    calls = []
+    monkeypatch.setattr(fourstep_fft, "_check", lambda *a: None)
+    monkeypatch.setattr(fourstep_fft._build, "function", lambda *a: "launcher")
+    monkeypatch.setattr(fourstep_fft._build, "launch",
+                        lambda kernel, fn, *args, device: calls.append((kernel, args)))
+    src = torch.empty((5, 2, 65536), dtype=torch.int64, device="meta")
+    fourstep_fft.fft_forward_digits(src, None, 11, 3)
+    planes = torch.empty((5, 2, 2, 32768), dtype=torch.float64, device="meta")
+    fourstep_fft.fft_inverse_torus(planes, None)
+    assert calls == [("fft_forward", (0, None, 0, 5, 2, 65536, 11, 3)),
+                     ("fft_inverse", (0, None, 0, 5, 2, 65536))]
+
+
+def test_residency_needs_a_card(monkeypatch):
+    """The residency is the card's occupancy: without CUDA it raises, for a
+    size it has no kernel for too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="residency: needs a CUDA device"):
+        fourstep_fft.residency(65536)
+    with pytest.raises(ValueError, match="residency: needs N a power of two"):
+        fourstep_fft.residency(3000)
 
 
 # --- one CMux step against the exact product (kernels/cmux_accuracy.py) -------

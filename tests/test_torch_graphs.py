@@ -235,6 +235,14 @@ def test_the_engine_reads_how_the_pack_ran(cpu_ctx, monkeypatch, entry):
             snap["engine.graph_replays"]) == (1, 1, 2)
 
 
+def test_a_cpu_engine_sets_no_residency_gauge(cpu_ctx):
+    """`engine.fft_clusters_resident` reads a card's occupancy: an engine
+    on the CPU builds its pack and leaves the gauge unset."""
+    tel = Telemetry()
+    TaurusEngine.from_context(cpu_ctx, device="cpu", telemetry=tel).fused_pack
+    assert "engine.fft_clusters_resident" not in tel.snapshot()["gauges"]
+
+
 def test_the_engine_counts_the_bytes_of_captures_and_evictions(cpu_ctx, monkeypatch):
     """The engine adds a capture's graph bytes to
     `engine.graph_bytes_captured` and the bytes of the graph it evicted

@@ -20,7 +20,7 @@ from repro.kernels import external_product as jep, fourstep_fft as jff  # noqa: 
 from repro.kernels import fused_pbs as jfused, ops, ref  # noqa: E402
 from repro_torch.interop import context_from_numpy, tensor_to_u64, u64_to_tensor  # noqa: E402
 from repro_torch.kernels import external_product, fourstep_fft, fused_pbs, keyswitch  # noqa: E402
-from repro_torch.kernels import mac_sweep  # noqa: E402
+from repro_torch.kernels import fft_sweep, mac_sweep  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 
 
@@ -195,6 +195,23 @@ def test_mac_sweep_variants_rewrite_the_kernel_source(threads, rows):
     assert f"constexpr int kRows = {rows};" in text
     assert "EP_CASE(2, 2)" in text and "EP_CASE(9, 3)" not in text
     assert text.count("\n") < src.count("\n")
+
+
+@pytest.mark.parametrize("shape,name", [(s, n) for s, vs in fft_sweep.VARIANTS.items()
+                                        for n in vs])
+def test_fft_sweep_variants_rewrite_the_kernel_source(shape, name):
+    """Each FFT plan the sweep builds on the card sets the shipped kernel's
+    radix, cluster size, threads and buffer sharing, and instantiates only
+    its shape's lg M; the phase probe marks all ten boundaries."""
+    radix, p, vpt, share, probe = fft_sweep.VARIANTS[shape][name]
+    lg = fft_sweep.log_m(shape)
+    src = fft_sweep.SRC.read_text()
+    text = fft_sweep.variant_source(src, lg, radix, p, vpt, share, probe)
+    assert f"constexpr int kMaxRadix = {radix};" in text
+    assert f"static constexpr int P = LOG_M >= 12 ? {p} : 1;" in text
+    assert f"static constexpr bool SHARE = {str(share).lower()};" in text
+    assert f"FFT_CASE({lg})" in text and "FFT_CASE(2)" not in text
+    assert text.count("  mark(") == (10 if probe == "phases" else 0)
 
 
 # --- wrappers raise on devices they have no kernel for -------------------------
