@@ -37,21 +37,10 @@ from repro_torch.core import params  # noqa: E402
 from repro_torch.interop import context_from_numpy, u64_to_tensor  # noqa: E402
 from repro_torch.serve.interpreter import IrInterpreter  # noqa: E402
 from torch_stand_in import StandInEngine  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BITS = 8
 MOD = 1 << BITS
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module: the suite runs several
-    workers on shared cores, and the port's plain path is many small ops
-    that gain nothing from more threads, while an OpenMP pool spinning
-    beside JAX's threads starves every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mixed_fn(a, b):

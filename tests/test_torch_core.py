@@ -5,9 +5,11 @@ context's keys, carried across by `repro_torch.interop`) go through the
 JAX function and its port, and the uint64 bits must match.  The FFT is
 held to 1e-12 of the spectrum scale.
 """
+import ast
 import dataclasses
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from repro.core import params as jparams  # noqa: E402
 from repro_torch.core import batch, decompose as dec, fft, glwe, lwe, params, torus  # noqa: E402
 from repro_torch.core.pbs import TFHEContext  # noqa: E402
 from repro_torch.interop import context_from_numpy, tensor_to_u64, u64_to_tensor  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 PARAM_NAMES = ["TEST_PARAMS", "TEST_PARAMS_4BIT", "TEST_PARAMS_6BIT", "TEST_PARAMS_K2"]
 CORNERS = np.array([0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 32, 2 ** 63 - 1, 2 ** 63,
@@ -258,3 +261,22 @@ def test_port_imports_neither_jax_nor_repro():
                                         "PATH": "/usr/bin:/bin"}, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[0]) >= 56
+
+
+# --- test layer ---------------------------------------------------------------
+
+PORT_TEST_FILES = sorted(Path(__file__).parent.glob("test_torch_*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_TEST_FILES, ids=[p.name for p in PORT_TEST_FILES])
+def test_port_test_file_takes_the_shared_thread_pin(path):
+    """Each port test file imports exactly one pin from `torch_threads` and
+    sets torch's threads nowhere itself (a subprocess script is a string)."""
+    tree = ast.parse(path.read_text())
+    pins = [a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.module == "torch_threads"
+            for a in node.names]
+    assert pins in (["one_torch_thread"], ["two_torch_threads"]), pins
+    calls = [node.lineno for node in ast.walk(tree) if isinstance(node, ast.Call)
+             and getattr(node.func, "attr", getattr(node.func, "id", None)) == "set_num_threads"]
+    assert not calls, f"set_num_threads called at lines {calls}"

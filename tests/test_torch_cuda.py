@@ -63,6 +63,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.runtime import Int8Compressor  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture

@@ -24,17 +24,10 @@ from repro_torch.launch.mesh import process_group  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import launch_mesh, train  # noqa: E402
 import torch_dist_ranks as ranks  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LOSS_TOL = 1e-5
 PARAM_TOL, PARAM_OUTLIERS, LR = 1e-4, 1e-4, 3e-3     # chip_smoke.py's train rule
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_launch_mesh_without_a_group():

@@ -26,6 +26,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = ["pixtral-12b", "gemma-7b", "starcoder2-15b", "deepseek-coder-33b", "qwen3-0.6b",
          "recurrentgemma-2b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "mamba2-130m",

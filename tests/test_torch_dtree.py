@@ -24,6 +24,7 @@ from repro_torch.core import params  # noqa: E402
 from repro_torch.fhe_ml import executor, tree_reference, trees  # noqa: E402
 from test_torch_api import port_context  # noqa: E402
 from torch_stand_in import StandInEngine  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REFERENCE = Path(tree_reference.__file__)
 

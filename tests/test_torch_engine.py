@@ -23,6 +23,7 @@ from repro_torch.core import glwe  # noqa: E402
 from repro_torch.core.engine import TaurusEngine, validate_lut_tables  # noqa: E402
 from repro_torch.interop import context_from_numpy, tensor_to_u64, u64_to_tensor  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BACKENDS = ["fused", "reference"]
 

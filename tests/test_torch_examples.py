@@ -16,14 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.examples import (checked_lines, encrypted_int32, fhe_gpt2,  # noqa: E402
                                   got_expect, quickstart, serve_requests, sim_scenario,
                                   trace_serve)
-
-
-@pytest.fixture(autouse=True)
-def few_threads():
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
+from torch_threads import two_torch_threads  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("demo,argv,lines", [

@@ -26,6 +26,7 @@ from repro.kernels import fourstep_fft as jff  # noqa: E402
 from repro_torch.core import batch, decompose as dec, torus  # noqa: E402
 from repro_torch.interop import tensor_to_u64, u64_to_tensor  # noqa: E402
 from repro_torch.kernels import fourstep_fft, launch_counts, reset_launch_counts  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N = 64
 B = 3

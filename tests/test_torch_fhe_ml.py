@@ -48,20 +48,11 @@ from repro_torch.fhe_ml import executor, lower, quantize  # noqa: E402
 from repro_torch.interop import u64_to_tensor  # noqa: E402
 from test_torch_api import assert_same_graph, assert_same_value, port_context  # noqa: E402
 from torch_stand_in import StandInEngine  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BITS = 8
 MOD = 1 << BITS
 SRC = str(Path(fhe_ml.__file__).resolve().parents[2])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread, as in tests/test_torch_api.py: the suite runs
-    several workers beside JAX's threads on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -28,16 +28,7 @@ from repro_torch.fhe_ml import lower, quantize  # noqa: E402
 from repro_torch.interop import u64_to_tensor  # noqa: E402
 from test_torch_api import assert_same_graph, assert_same_value, port_context  # noqa: E402
 from test_torch_serve import barrier_only, sched_counts  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads: each backend's rounds are the long pole of
-    its worker, and the other workers keep one thread each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from repro_torch.core.params import TEST_PARAMS, TEST_PARAMS_K2  # noqa: E402
 from repro_torch.core.pbs import TFHEContext  # noqa: E402
 from repro_torch.kernels import _build, fused_pbs  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture

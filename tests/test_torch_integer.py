@@ -33,20 +33,9 @@ from repro_torch.core.integer import IntegerContext, RadixSpec  # noqa: E402
 from repro_torch.interop import (context_from_numpy, radix_from_numpy,  # noqa: E402
                                  radix_to_numpy, tensor_to_u64, u64_to_tensor)
 from torch_stand_in import StandInEngine  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 STATS = ("pbs", "lut_batches", "batch_sizes", "dispatch_sizes")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module: the suite runs several
-    workers on shared cores, and the port's plain path is many small ops
-    that gain nothing from more threads, while an OpenMP pool spinning
-    beside JAX's threads starves every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_context(ctx):

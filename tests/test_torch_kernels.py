@@ -22,6 +22,7 @@ from repro_torch.interop import context_from_numpy, tensor_to_u64, u64_to_tensor
 from repro_torch.kernels import external_product, fourstep_fft, fused_pbs, keyswitch  # noqa: E402
 from repro_torch.kernels import fft_sweep, mac_sweep  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)

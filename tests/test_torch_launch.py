@@ -30,6 +30,7 @@ from repro_torch.kernels import fourstep_fft as ff, external_product as ep  # no
 from repro_torch.launch import pbs_dryrun, roofline as rl  # noqa: E402
 from repro_torch.launch.train import reduced_config  # noqa: E402
 from test_torch_api import port_context  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SETS = sorted(params.PAPER_PARAMS) + ["TEST_PARAMS", "TEST_PARAMS_4BIT", "TEST_PARAMS_6BIT",

@@ -42,19 +42,11 @@ from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import reduced_config  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCHS = list(configs.ARCH_IDS)
 RECURRENT = ("mamba2-130m", "recurrentgemma-2b")
 B, S, CHUNK = 2, 32, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    # xdist workers share the cores with XLA's threads
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -40,6 +40,7 @@ from repro_torch.obs import Telemetry  # noqa: E402
 from test_torch_serve import (BITS, engine4, ic4, jic4, serve_wave,  # noqa: E402,F401
                               tctx_2bit, tctx_4bit, to_port)
 import torch_dist_ranks as ranks  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 MESHES = {"data2_model2": (("data", "model"), (2, 2)),
           "data16_model16": (("data", "model"), (16, 16)),
@@ -49,14 +50,6 @@ MESHES = {"data2_model2": (("data", "model"), (2, 2)),
 def stand_in(key):
     names, sizes = MESHES[key]
     return types.SimpleNamespace(axis_names=names, shape=dict(zip(names, sizes)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

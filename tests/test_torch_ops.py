@@ -22,6 +22,7 @@ from repro.kernels import ops as jops, ref  # noqa: E402
 from repro_torch.interop import tensor_to_u64, u64_to_tensor  # noqa: E402
 from repro_torch.kernels import external_product, fourstep_fft, keyswitch, ops  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 jax.config.update("jax_enable_x64", True)
 

@@ -39,18 +39,10 @@ from repro_torch.core.integer import IntegerContext  # noqa: E402
 from repro_torch.interop import u64_to_tensor  # noqa: E402
 from repro_torch.runtime.fault import FaultConfig  # noqa: E402
 from test_torch_api import port_context  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BITS = 8
 MOD = 1 << BITS
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread: the suite runs several workers on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

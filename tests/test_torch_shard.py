@@ -28,17 +28,9 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.runtime import elastic  # noqa: E402
 from test_torch_serve import (BITS, engine4, ic4, jic4, sched_counts,  # noqa: E402,F401
                               serve_wave, tctx_2bit, tctx_4bit, to_port)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ELASTIC = {"reference": jelastic, "port": elastic}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread: the suite runs several workers on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- ElasticAdmission: pure controller -----------------------------------------

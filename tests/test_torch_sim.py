@@ -24,15 +24,7 @@ from repro_torch import sim  # noqa: E402
 from repro_torch.core.engine import TaurusEngine  # noqa: E402
 from repro_torch.sim import runner, suite  # noqa: E402
 from test_torch_api import assert_same_graph, port_context  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread: the suite runs several workers on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

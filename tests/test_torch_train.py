@@ -63,18 +63,10 @@ from repro_torch.launch.train import reduced_config, train  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.optim import AdamW, adamw_update, cosine_schedule  # noqa: E402
 from repro_torch.runtime import Int8Compressor  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "qwen3-0.6b"
 B, S, CHUNK = 2, 32, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    # xdist workers share the cores with XLA's threads
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
